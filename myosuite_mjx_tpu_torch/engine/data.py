@@ -94,7 +94,7 @@ class Data:
 
 
 def make_data(m, batch: int, dtype: torch.dtype = torch.float32,
-              device: str | torch.device = "cpu") -> Data:
+              device: str | torch.device = "cuda") -> Data:
   """Fresh Data of ``batch`` envs at qpos0 (run ``forward`` to fill it).
 
   ``m`` is a host ``Model`` or a ``DeviceModel`` (only sizes and host
@@ -158,7 +158,7 @@ def make_data(m, batch: int, dtype: torch.dtype = torch.float32,
   )
 
 
-def data_from_numpy(tree, device: str | torch.device = "cpu"):
+def data_from_numpy(tree, device: str | torch.device = "cuda"):
   """Carry a batched JAX ``Data`` or ``EnvState`` (leaves converted to
   numpy, leading batch axis) into the port's ``Data`` / ``EnvState``."""
   if hasattr(tree, "obs") and hasattr(tree, "data"):

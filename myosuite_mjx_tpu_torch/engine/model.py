@@ -1,8 +1,10 @@
 """Physics model of the port: host constants and their device copy.
 
 The MJCF compiler needs ``mujoco``, which the GPU machine does not have. So
-a scene is compiled once on a host by ``tools/export_model.py`` (with the
-JAX package's ``engine/model.load_model``) and shipped as an ``.npz``.
+a scene is compiled once on a host with the JAX package's
+``engine/model.load_model`` and shipped as an ``.npz`` (the fixtures by
+``python tests/torch_parity.py --export``, the one place that imports both
+packages).
 ``load_npz`` reads it back into a ``Model``: every field of the reference
 ``Model`` as numpy, ``Option`` as a dataclass and ``names`` as a dict.
 
@@ -203,7 +205,7 @@ def to_npz_payload(m: Model) -> dict[str, np.ndarray]:
 
 
 def load_npz(path: str) -> Model:
-  """Read a Model written by ``tools/export_model.py``."""
+  """Read a Model written from ``to_npz_payload`` (see the module note)."""
   if not os.path.exists(path):
     raise FileNotFoundError(f"no model file at {path!r}")
   fields: dict[str, Any] = {name: {} for name in _DICT_FIELDS}
@@ -238,7 +240,7 @@ class DeviceModel(nn.Module):
   """
 
   def __init__(self, model: Model, dtype: torch.dtype = torch.float32,
-               device: str | torch.device = "cpu"):
+               device: str | torch.device = "cuda"):
     super().__init__()
     _check_supported(model)
     self.host = model

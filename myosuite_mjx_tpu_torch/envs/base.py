@@ -79,7 +79,8 @@ def _select(mask: torch.Tensor, a: Any, b: Any) -> Any:
 class MyoEnv:
   """Base class for batched musculoskeletal tasks.
 
-  ``model_path`` is an ``.npz`` written by ``tools/export_model.py``.
+  ``model_path`` is an ``.npz`` model (``engine.model.load_npz``; the
+  fixtures are written by ``python tests/torch_parity.py --export``).
   Building a MyoEnv pins float32 matmul precision.
   """
 
@@ -199,9 +200,10 @@ class MyoEnv:
 
   # ---- core functions ---------------------------------------------------
 
-  def reset(self, batch: int, device="cpu",
+  def reset(self, batch: int, device="cuda",
             generator: torch.Generator | None = None) -> EnvState:
-    """Fresh episodes for ``batch`` envs on ``device``."""
+    """Fresh episodes for ``batch`` envs on ``device`` (the card unless the
+    caller asks for the CPU)."""
     dm = self.device_model(device)
     aux = self.reset_aux(batch, dm.device, generator)
     qpos, qvel = self.reset_qpos_qvel(batch, dm.device, aux, generator)
@@ -242,9 +244,10 @@ class MyoEnv:
 
 
 class BatchedEnv:
-  """``num_envs`` environments of one MyoEnv on one device."""
+  """``num_envs`` environments of one MyoEnv on one device (the card unless
+  the caller asks for the CPU)."""
 
-  def __init__(self, env: MyoEnv, num_envs: int, device="cpu", seed: int = 0):
+  def __init__(self, env: MyoEnv, num_envs: int, device="cuda", seed: int = 0):
     self.env = env
     self.num_envs = num_envs
     self.device = torch.device(device)
@@ -257,7 +260,7 @@ class BatchedEnv:
     return self.env.autoreset_step(state, action, self.generator)
 
 
-def state_from_numpy(tree, device="cpu") -> EnvState:
+def state_from_numpy(tree, device="cuda") -> EnvState:
   """Carry a batched JAX ``EnvState`` (leaves as numpy) into the port; the
   per-env JAX keys (``rng``) have no counterpart and are dropped."""
   t = lambda x: torch.as_tensor(np.array(x), device=device)

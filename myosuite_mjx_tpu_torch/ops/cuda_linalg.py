@@ -45,11 +45,14 @@ def build(verbose: bool = False) -> tuple[str, float, str]:
   """Compile the kernel if its library is missing.
 
   Returns (library path, build seconds, compiler output); seconds is 0.0
-  when the library was already there.
+  when the library was already there, and the output is then the one kept
+  beside it from its build (ptxas's registers and spills).
   """
   path = library_path()
+  log_path = path[:-len(".so")] + ".log"
   if os.path.exists(path):
-    return path, 0.0, ""
+    with open(log_path) as f:
+      return path, 0.0, f.read()
   os.makedirs(BUILD_DIR, exist_ok=True)
   fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
   os.close(fd)
@@ -62,6 +65,8 @@ def build(verbose: bool = False) -> tuple[str, float, str]:
   if proc.returncode != 0:
     os.unlink(tmp)
     raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+  with open(log_path, "w") as f:
+    f.write(proc.stderr)
   os.replace(tmp, path)
   if verbose:
     print(proc.stderr.strip())

@@ -297,6 +297,6 @@ def test_unported_pair_type_raises():
     <body pos="0 0 .1"><joint type="slide" axis="0 0 1"/>
     <geom type="box" size=".05 .05 .05"/></body></worldbody></mujoco>"""
   from myosuite_mjx_tpu_torch.engine.model import DeviceModel, from_reference
-  dm = DeviceModel(from_reference(load_model(xml)), torch.float64)
+  dm = DeviceModel(from_reference(load_model(xml)), torch.float64, "cpu")
   with pytest.raises(NotImplementedError, match="PLANE-BOX"):
     collision.collision_spec(dm)

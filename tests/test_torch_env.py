@@ -69,7 +69,7 @@ def test_autoreset_rollout_matches_jax(jax_pose_env):
 
   # the JAX state carried into the port holds the same values and steps on
   # like the port's own state
-  carried = data_from_numpy(jax.tree.map(np.asarray, jstate))
+  carried = data_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
   assert isinstance(carried, base.EnvState)
   for f in CARRIED:
     assert_close(getattr(carried.data, f), getattr(jstate.data, f), rtol=0,
@@ -120,7 +120,7 @@ def test_env_shapes_at_hand23_width():
   env = PoseEnv(NPZ[5], dtype=torch.float32, frame_skip=1,
                 target_jnt_value=HAND_TARGET, reset_type="init",
                 target_type="fixed", pose_thd=0.7)
-  state = env.reset(2)
+  state = env.reset(2, "cpu")
   assert env.action_dim == 39
   assert state.obs.shape == (2, 108)    # qpos 23, qvel 23, pose_err 23, act 39
   assert env.obs_keys == ["qpos", "qvel", "pose_err", "act"]

@@ -4,7 +4,10 @@ Imports no jax, so it runs on the GPU machine too:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_kernel_gpu.py
 
-Without a card every case skips: the kernel has no CPU mode.
+Without a card every case skips: the kernel has no CPU mode. The sizes
+cover every padded size the kernel is built for (8, 16, 24, 32, 64), both
+ends of each, and n = 1; the batches cover a single system, whole blocks
+(the bulk-copy load) and a ragged last block (the plain load).
 """
 from __future__ import annotations
 
@@ -14,6 +17,11 @@ import torch
 
 from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
 
+SIZES = (1, 4, 8, 11, 16, 17, 23, 24, 32, 33, 64)
+BATCHES = (1, 1000, 4096, 4097)
+# float32 on both sides, other operation order: a few ulps of the scale
+BOUND = 2e-5
+
 
 def _spd(n: int, batch: int, seed: int):
   rng = np.random.default_rng(seed)
@@ -22,25 +30,44 @@ def _spd(n: int, batch: int, seed: int):
   return a.astype(np.float32), rng.normal(size=(batch, n)).astype(np.float32)
 
 
+def _check_against_plain(ac: torch.Tensor, bc: torch.Tensor):
+  before = cuda_linalg.spd_solve_cuda.launches
+  x, L = cuda_linalg.spd_solve_cuda(ac, bc, factor=True)
+  x_only = cuda_linalg.spd_solve_cuda(ac, bc)
+  xp, Lp = linalg.spd_solve_plain(ac, bc, factor=True)
+  torch.cuda.synchronize()
+  assert cuda_linalg.spd_solve_cuda.launches == before + 2
+  assert torch.equal(x, x_only)
+  np.testing.assert_allclose(x.cpu().numpy(), xp.cpu().numpy(), rtol=0,
+                             atol=BOUND * float(xp.abs().max()))
+  np.testing.assert_allclose(L.cpu().numpy(), Lp.cpu().numpy(), rtol=0,
+                             atol=BOUND * float(Lp.abs().max()))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,batch", [(1, 3), (4, 1), (23, 4096), (23, 4097),
-                                     (64, 1000)])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("n", SIZES)
 def test_kernel_matches_plain_on_card(n, batch):
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  a, b = _spd(n, batch, seed=n * 10_000 + batch)
+  _check_against_plain(torch.as_tensor(a, device="cuda"),
+                       torch.as_tensor(b, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [23, 24])
+def test_kernel_on_misaligned_view(n):
+  """A contiguous view 4 bytes past a 16-byte boundary takes the plain load."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  batch = 4096
   a, b = _spd(n, batch, seed=n)
-  ac = torch.as_tensor(a, device="cuda")
-  bc = torch.as_tensor(b, device="cuda")
-  before = cuda_linalg.spd_solve_cuda.launches
-  x, L = cuda_linalg.spd_solve_cuda(ac, bc, factor=True)
-  xp, Lp = linalg.spd_solve_plain(ac, bc, factor=True)
-  torch.cuda.synchronize()
-  assert cuda_linalg.spd_solve_cuda.launches == before + 1
-  # float32 on both sides, other operation order: a few ulps of the scale
-  np.testing.assert_allclose(x.cpu().numpy(), xp.cpu().numpy(), rtol=0,
-                             atol=2e-5 * float(xp.abs().max()))
-  np.testing.assert_allclose(L.cpu().numpy(), Lp.cpu().numpy(), rtol=0,
-                             atol=2e-5 * float(Lp.abs().max()))
+  big = torch.empty(batch * n * n + 1, device="cuda")
+  ac = big[1:].view(batch, n, n)
+  ac.copy_(torch.as_tensor(a))
+  assert ac.is_contiguous() and ac.data_ptr() % 16 == 4
+  _check_against_plain(ac, torch.as_tensor(b, device="cuda"))
 
 
 @pytest.mark.gpu

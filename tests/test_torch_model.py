@@ -1,8 +1,11 @@
 """The port's model files: the checked-in fixtures, the npz round trip, the
-enums, and the rule that the port imports no jax, flax or mujoco."""
+enums, the rule that the port imports no jax, flax, mujoco or JAX package,
+and the card as the entry points' default device."""
 from __future__ import annotations
 
+import ast
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -10,14 +13,17 @@ import sys
 import numpy as np
 import pytest
 
-from torch_parity import HAND_TARGET, NPZ, jax_model
+from torch_parity import HAND_TARGET, NPZ, export_model, jax_model
 from myosuite_mjx_tpu.engine import model as jmodel
 from myosuite_mjx_tpu_torch.assets.fixtures import hand_fixture_xml
 from myosuite_mjx_tpu_torch.engine import collision
+from myosuite_mjx_tpu_torch.engine import data as tdata
 from myosuite_mjx_tpu_torch.engine import model as tmodel
-from myosuite_mjx_tpu_torch.tools.export_model import export_model
+from myosuite_mjx_tpu_torch.envs import base
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+# top-level packages the port and chip_smoke.py must not import
+BANNED_IMPORTS = ("jax", "flax", "mujoco", "myosuite_mjx_tpu")
 
 
 def _assert_models_equal(a: tmodel.Model, b: tmodel.Model):
@@ -86,6 +92,57 @@ def test_port_imports_no_jax_flax_or_mujoco():
   out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
+
+
+def _banned_imports(source: str, filename: str) -> list[str]:
+  """Every import statement, at any depth, of a banned top-level package."""
+  found = []
+  for node in ast.walk(ast.parse(source, filename)):
+    if isinstance(node, ast.Import):
+      names = [alias.name for alias in node.names]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      names = [node.module]
+    else:
+      continue
+    found += [(node.lineno, name) for name in names
+              if name.split(".")[0] in BANNED_IMPORTS]
+  return [f"{filename}:{line} {name}" for line, name in sorted(found)]
+
+
+def test_import_guard_sees_nested_imports():
+  source = ("import myosuite_mjx_tpu_torch.ops\n"
+            "from myosuite_mjx_tpu_torch import envs\n"
+            "def f():\n"
+            "  if True:\n"
+            "    from myosuite_mjx_tpu.engine.model import load_model\n"
+            "  import jax.numpy as jnp, numpy\n"
+            "class C:\n"
+            "  def g(self):\n"
+            "    import mujoco\n")
+  assert _banned_imports(source, "x.py") == [
+      "x.py:5 myosuite_mjx_tpu.engine.model", "x.py:6 jax.numpy",
+      "x.py:9 mujoco"]
+
+
+def test_port_sources_import_no_jax_flax_mujoco_or_jax_package():
+  pkg = os.path.join(REPO, "myosuite_mjx_tpu_torch")
+  paths = sorted(os.path.join(root, f) for root, _, files in os.walk(pkg)
+                 for f in files if f.endswith(".py"))
+  paths.append(os.path.join(REPO, "chip_smoke.py"))
+  assert len(paths) >= 20, paths
+  found = []
+  for path in paths:
+    with open(path) as f:
+      found += _banned_imports(f.read(), os.path.relpath(path, REPO))
+  assert not found, found
+
+
+@pytest.mark.parametrize("fn", [
+    base.MyoEnv.reset, base.BatchedEnv.__init__, base.state_from_numpy,
+    tmodel.DeviceModel.__init__, tdata.make_data, tdata.data_from_numpy],
+                         ids=lambda fn: fn.__qualname__)
+def test_entry_points_default_to_the_card(fn):
+  assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_hand23_has_myohand_width():

@@ -1,20 +1,34 @@
-"""Shared helpers for the PyTorch port's parity tests.
+"""Shared helpers for the PyTorch port's parity tests, and the fixture export.
 
 Each test makes its inputs with numpy from a seed, feeds them to the JAX
 reference (``myosuite_mjx_tpu``, float64 on the CPU) and to the port
 (``myosuite_mjx_tpu_torch``), and compares field by field.
+
+This module also bridges the two packages outside the tests: the port's
+``.npz`` models are compiled from MJCF with the JAX package's host compiler
+(``myosuite_mjx_tpu.engine.model.load_model``: numpy and mujoco, no jax),
+since the GPU machine has no ``mujoco``. After editing
+``myosuite_mjx_tpu_torch/assets/fixtures.py``, refresh the checked-in
+fixtures from the repo root with
+
+    python tests/torch_parity.py --export
 """
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import types
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-import pytest
-import torch
+if __name__ == "__main__":  # run as a script: put the repo root on the path
+  sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+      __file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
 
 # the lane runs several xdist workers; one intra-op thread each
 torch.set_num_threads(1)
@@ -40,7 +54,13 @@ def jax_model(digits: int):
 
 
 def port_model(digits: int, dtype=torch.float64) -> tmodel.DeviceModel:
-  return tmodel.DeviceModel(tmodel.load_npz(NPZ[digits]), dtype)
+  return tmodel.DeviceModel(tmodel.load_npz(NPZ[digits]), dtype, "cpu")
+
+
+def export_model(xml: str) -> dict[str, np.ndarray]:
+  """Compile MJCF text (or a path) into the port's ``.npz`` payload."""
+  return tmodel.to_npz_payload(
+      tmodel.from_reference(jmodel.load_model(xml, dtype=np.float64)))
 
 
 def to_np(x) -> np.ndarray:
@@ -81,7 +101,7 @@ def jax_batch(m, qpos, qvel, act, ctrl, warm):
 
 def port_batch(jd) -> tdata.Data:
   """The port's Data holding exactly the JAX Data's values."""
-  return tdata.data_from_numpy(jax.tree.map(np.asarray, jd))
+  return tdata.data_from_numpy(jax.tree.map(np.asarray, jd), "cpu")
 
 
 @pytest.fixture
@@ -107,3 +127,21 @@ def jax_pose_env(monkeypatch):
   yield PoseEnv
   for n in added:
     sys.modules.pop(n, None)
+
+
+def main(argv=None) -> None:
+  ap = argparse.ArgumentParser(description="Write the port's fixture models.")
+  ap.add_argument("--export", action="store_true",
+                  help="compile hand11 and hand23 and write their .npz files")
+  ap.add_argument("--out-dir", default=os.path.normpath(ASSETS))
+  args = ap.parse_args(argv)
+  if not args.export:
+    ap.error("nothing to do: pass --export")
+  for digits, fixture in NPZ.items():
+    path = os.path.join(args.out_dir, os.path.basename(fixture))
+    np.savez_compressed(path, **export_model(hand_fixture_xml(digits)))
+    print(path)
+
+
+if __name__ == "__main__":
+  main()

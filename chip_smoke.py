@@ -12,8 +12,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fails if any of them spills;
 3. kernel check: the kernel against its plain PyTorch version and against
    float64 ``torch.linalg.solve`` on random SPD batches (every padded size
-   and its ends, n = 1; whole blocks, a ragged last block and a misaligned
-   view) and on M, M + h D and Newton H from a hand23 rollout; times, at
+   and its ends, n = 1; every batch the later phases launch at, whole
+   blocks, a ragged last block and a misaligned view) and on M, M + h D and
+   Newton H from hand23 rollouts at each of those batches; times, at
    the main path's shape [4096, 23], the kernel, the plain version and
    ``torch.linalg.solve_ex`` (the one PyTorch call that computes the same
    x, timed only) over 50 eager calls, and the kernel as 50 launches
@@ -26,16 +27,42 @@ Phases, in order; any failure ends the run with a non-zero exit:
    control steps, so every env crosses horizon 100 once; checks finite
    outputs, the autoreset, the kernel launch count and the precision pin;
 5. card against CPU: 5 control steps of the same 16 envs on the card
-   (float32, kernel) and on the CPU (float64, plain version).
+   (float32, kernel) and on the CPU (float64, plain version);
+6. train: ``NPG.train`` on hand23 at the zoo run's width (512 trajectories
+   x horizon 100, ``NPGConfig`` defaults otherwise), two iterations with a
+   32-env eval after the second and a ``MetricsWriter``; then one ``PPO``
+   iteration at ``PPOConfig`` defaults (128 envs x 50 steps, 32 minibatches,
+   8 epochs). Prints env-steps/s and physics-steps/s per iteration, the
+   seconds of rollout, GAE, natural-gradient step and value fit (CUDA syncs
+   around each, here and not in the learner), the realized mean KL of each
+   step beside ``step_size``, the SPD-kernel launches of each part and of
+   the inits (timed apart) and the metrics. Iteration 0's natural-gradient
+   step, and the start of its value fit, are replayed in float64 on the
+   CPU from the same state, batch and permutation. Fails on a non-finite
+   metric, a realized KL off ``step_size`` by more than ``KL_BAND``, a
+   replay off by more than ``NPG_UPDATE_BOUND``, unchanged parameters, no
+   kernel launch, a lost precision pin or a jsonl with the wrong number of
+   records;
+7. policy: the zoo's myoHandPoseFixed-v0 policy drives 4096 hand23 envs for
+   5 control steps on the card; at B = 16 its float32 actions on the card
+   match the float64 policy on the CPU for the same observations (at reset
+   and after 5 steps), and the CPU float64 env driven by the card's actions
+   stays within phase 5's state bounds.
+
+Every [B, n] at which phases 4-7 launch the kernel must be among those
+phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
+import contextlib
+import copy
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,8 +80,12 @@ HAND23 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "hand23.npz")
 # n = 1
 PADDED_SIZES = (8, 16, 24, 32, 64)
 SIZES = (1, 4, 8, 11, 16, 17, 23, 24, 32, 33, 64)
-# one system; whole blocks (bulk-copy load); ragged last block (plain load)
-BATCHES = (1, 1000, 4096, 4097)
+# the batches the paths launch the kernel at: the card side of phases 5 and
+# 7, the NPG eval, the PPO rollout, the NPG rollout and the main path
+PATH_BATCHES = (16, 32, 128, 512, B_MAIN)
+# those, one system (NPG's init reset), whole blocks (bulk-copy load) and a
+# ragged last block (plain load)
+BATCHES = (1, *PATH_BATCHES, 1000, 4097)
 # kernel vs plain, float32 both: relative to the largest |x|. Random SPD
 # batches have eigenvalues >= 1, so a few ulps of float32 suffice.
 RANDOM_BOUND = 2e-5
@@ -65,6 +96,30 @@ BACKWARD_BOUND = 1e-5
 # substeps). Float32 against float64 on the CPU gave 3.6e-6 (qpos),
 # 8.4e-4 (qvel, of 6.8 peak) and 1.3e-7 (act); the bounds leave 25-80x.
 CARD_CPU_BOUND = {"qpos": 1e-4, "qvel": 7e-2, "act": 1e-5}
+# phase 6: the zoo NPG run's width (train_artifacts/myoHandPoseFixed_npg:
+# 51,200 env steps per iteration), two iterations
+NPG_ENVS = 512
+NPG_ITERS = 2
+TRAIN_SEED = 0
+# the realized mean KL of a natural-gradient step within this share of
+# step_size (the PR 3 prediction; measured 0.0987 to 0.0996 for 0.1)
+KL_BAND = 0.2
+# iteration 0's update against a float64 replay on the CPU from the same
+# state, batch and permutation: the natural-gradient step (the policy's
+# largest difference over its largest change, and alpha, relative), and the
+# first 100 minibatches of the value fit replayed on the card (likewise).
+# Float32 against float64 on the CPU, hand23 batches of 1,600 and 51,200
+# samples: policy 3.9e-7 to 3.8e-6, alpha 5.7e-7 to 1.1e-6, value 1.7e-6
+# after 100 minibatches and at most 5.4e-6 up to the 1,050th; the bounds
+# leave 20x and more. Past that, a ReLU unit that switches sign in one
+# precision and not the other took the whole fit (1,600 minibatches) to
+# 7.8e-2 apart, so the whole fit cannot be held to a bound.
+VF_REPLAY_MINIBATCHES = 100
+NPG_UPDATE_BOUND = {"policy": 1e-4, "alpha": 1e-4, "value": 1e-4}
+# phase 7: card float32 vs CPU float64 policy on the same observations.
+# Float32 against float64 on the CPU gave 4.5e-7; the bound leaves 20x.
+POLICY_BOUND = 1e-5
+POLICY_STEPS = 5
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -172,17 +227,17 @@ def _bound_ms(a: torch.Tensor, b: torch.Tensor, factor: bool = False):
   return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _rollout_systems():
+def _rollout_systems(batch: int):
   """M, M + h D and Newton H (active contacts) from a hand23 rollout."""
   from myosuite_mjx_tpu_torch.engine import collision, constraint
   from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
   from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
   env = PoseEnv(HAND23, **HAND_POSE_FIXED)
-  benv = BatchedEnv(env, B_MAIN, DEVICE, seed=1)
+  benv = BatchedEnv(env, batch, DEVICE, seed=1)
   st = benv.init()
   g = torch.Generator(device=DEVICE).manual_seed(1)
   for _ in range(3):
-    st = benv.step(st, torch.rand((B_MAIN, env.action_dim), generator=g,
+    st = benv.step(st, torch.rand((batch, env.action_dim), generator=g,
                                   device=DEVICE))
   d, m = st.data, env.device_model(DEVICE)
   blocks, info = collision.contacts(m, d)
@@ -252,32 +307,35 @@ def phase_kernel_check() -> dict:
        f"{errs[0]:.3e}, factor {errs[1]:.3e}, vs float64 solve {errs[2]:.3e}"
        f" ok")
 
-  systems, rhs = _rollout_systems()
-  for name, a in systems.items():
-    a = a.contiguous()
-    x = cuda_linalg.spd_solve_cuda(a, rhs)
-    xp = linalg.spd_solve_plain(a, rhs)
-    ref = torch.linalg.solve(a.double(), rhs.double())
-    torch.cuda.synchronize()
+  for batch in PATH_BATCHES:
+    systems, rhs = _rollout_systems(batch)
+    for name, a in systems.items():
+      a = a.contiguous()
+      x = cuda_linalg.spd_solve_cuda(a, rhs)
+      xp = linalg.spd_solve_plain(a, rhs)
+      ref = torch.linalg.solve(a.double(), rhs.double())
+      torch.cuda.synchronize()
 
-    def backward_err(sol):
-      res = (a.double() @ sol.double()[..., None])[..., 0] - rhs.double()
-      an = a.double().abs().sum(-1).amax(-1)
-      return float((res.abs().amax(-1) / (an * sol.double().abs().amax(-1)
-                                          + 1e-300)).max())
+      def backward_err(sol):
+        res = (a.double() @ sol.double()[..., None])[..., 0] - rhs.double()
+        an = a.double().abs().sum(-1).amax(-1)
+        return float((res.abs().amax(-1) / (an * sol.double().abs().amax(-1)
+                                            + 1e-300)).max())
 
-    be, bp = backward_err(x), backward_err(xp)
-    cond = float(torch.linalg.cond(a.double()).max())
-    e_ref = float(((x.double() - ref).abs().amax(-1)
-                   / ref.abs().amax(-1).clamp_min(1e-300)).max())
-    ok = max(be, bp) <= BACKWARD_BOUND
-    _say(f"kernel on hand23 {name} [{a.shape[0]}, {a.shape[1]}]: backward "
-         f"err kernel {be:.3e}, plain {bp:.3e} (bound {BACKWARD_BOUND:g}); "
-         f"max cond {cond:.3e}; fwd rel err vs float64 {e_ref:.3e} "
-         f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-      raise AssertionError(f"kernel not backward stable on {name}")
-    worst_main = max(worst_main, float((x - xp).abs().max()))
+      be, bp = backward_err(x), backward_err(xp)
+      cond = float(torch.linalg.cond(a.double()).max())
+      e_ref = float(((x.double() - ref).abs().amax(-1)
+                     / ref.abs().amax(-1).clamp_min(1e-300)).max())
+      ok = max(be, bp) <= BACKWARD_BOUND
+      _say(f"kernel on hand23 {name} [{a.shape[0]}, {a.shape[1]}]: backward "
+           f"err kernel {be:.3e}, plain {bp:.3e} (bound {BACKWARD_BOUND:g}); "
+           f"max cond {cond:.3e}; fwd rel err vs float64 {e_ref:.3e} "
+           f"{'ok' if ok else 'FAIL'}")
+      if not ok:
+        raise AssertionError(f"kernel not backward stable on {name} at "
+                             f"B={batch}")
+      if batch == B_MAIN:
+        worst_main = max(worst_main, float((x - xp).abs().max()))
 
   a64, b64 = _random_spd(23, B_MAIN, g)
   a, b = a64.float(), b64.float()
@@ -399,18 +457,352 @@ def phase_card_vs_cpu():
       raise AssertionError(f"card and CPU disagree on {f}")
 
 
+NPG_PARTS = ("rollout", "gae", "natural_gradient", "fit_value")
+PPO_PARTS = ("rollout", "normalize", "gae", "update")
+
+
+def _timed(cls, names: tuple):
+  """``cls`` with CUDA syncs at the edges of ``init`` and of each method in
+  ``names``, and the seconds and SPD-kernel launches of each: those of
+  ``init`` in ``self.init_part``, the others in ``self.parts[-1]``, the
+  record that each ``rollout`` opens for its iteration."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+
+  class Timed(cls):
+    def __init__(self, *args, **kwargs):
+      super().__init__(*args, **kwargs)
+      self.init_part: dict = {}
+      self.parts: list[dict] = []
+
+  def wrap(name):
+    def timed(self, *args, **kwargs):
+      if name == "rollout":
+        self.parts.append({})
+      rec = self.init_part if name == "init" else self.parts[-1]
+      torch.cuda.synchronize()
+      n0, t0 = cuda_linalg.spd_solve_cuda.launches, time.perf_counter()
+      out = getattr(super(Timed, self), name)(*args, **kwargs)
+      torch.cuda.synchronize()
+      rec[name] = time.perf_counter() - t0
+      rec[f"{name}_launches"] = cuda_linalg.spd_solve_cuda.launches - n0
+      return out
+    return timed
+
+  for name in ("init", *names):
+    setattr(Timed, name, wrap(name))
+  return Timed
+
+
+def _state_copy(module) -> dict:
+  return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def _flat_params(module) -> torch.Tensor:
+  return torch.nn.utils.parameters_to_vector(module.parameters()).detach()
+
+
+def _checked_npg():
+  """``NPG`` timed by part. It also measures the realized mean KL of each
+  natural-gradient step, and keeps in ``replay`` the state, batch and
+  permutations that iteration 0's step and value fit start from, and the
+  policy and alpha of its step."""
+  from myosuite_mjx_tpu_torch.train.npg import NPG
+
+  class CheckedNPG(_timed(NPG, (*NPG_PARTS, "eval_step"))):
+    replay: dict | None = None
+
+    def natural_gradient(self, ts, batch):
+      with torch.no_grad():
+        mean0, log_std0 = ts.params(batch["obs"])
+      first = self.replay is None
+      if first:
+        self.replay = dict(
+            policy=_state_copy(ts.params), vf=_state_copy(ts.vf_params),
+            opt=copy.deepcopy(ts.vf_opt.state_dict()),
+            batch={k: v.detach().clone() for k, v in batch.items()})
+      out = super().natural_gradient(ts, batch)
+      with torch.no_grad():
+        kl = self.mean_kl(ts.params, batch, mean0, log_std0)
+      self.parts[-1]["kl"] = float(kl)
+      if first:
+        self.replay.update(policy_after=_flat_params(ts.params).clone(),
+                           alpha=float(out["kl_step_alpha"]))
+      return out
+
+    def fit_value(self, ts, batch, perms):
+      self.replay.setdefault("perms", perms.clone())
+      return super().fit_value(ts, batch, perms)
+
+  return CheckedNPG
+
+
+def _replay_npg_update(cfg, replay: dict, device, dtype) -> dict:
+  """Iteration 0's natural-gradient step, and the first
+  ``VF_REPLAY_MINIBATCHES`` minibatches of its value fit, again from the
+  state, batch and permutation the card used, on ``device`` in ``dtype``."""
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+  from myosuite_mjx_tpu_torch.train.npg import NPG, NPGState
+  from myosuite_mjx_tpu_torch.train.ppo import RunningNorm, adam
+  npg = NPG(PoseEnv(HAND23, dtype=dtype, **HAND_POSE_FIXED), cfg, device)
+  obs_dim = replay["batch"]["obs"].shape[-1]
+  policy, vf = npg.make_nets(obs_dim, torch.Generator(device=device))
+  policy.load_state_dict(replay["policy"])
+  vf.load_state_dict(replay["vf"])
+  opt = adam(vf, cfg.vf_learning_rate)
+  # a copy: in the same dtype the loaded moments would alias the snapshot's
+  opt.load_state_dict(copy.deepcopy(replay["opt"]))
+  # the batch holds normalized obs: neither part reads obs_norm
+  ts = NPGState(params=policy, vf_params=vf, vf_opt=opt,
+                steps=torch.zeros((), dtype=torch.int64, device=device),
+                obs_norm=RunningNorm.create(obs_dim, dtype, device))
+  batch = {k: v.to(device, dtype) for k, v in replay["batch"].items()}
+  out = dict(policy_before=_flat_params(policy).clone(),
+             vf_before=_flat_params(vf).clone())
+  step = npg.natural_gradient(ts, batch)
+  out.update(policy_after=_flat_params(policy).clone(),
+             alpha=float(step["kl_step_alpha"]))
+  perm = replay["perms"][:1, :VF_REPLAY_MINIBATCHES * cfg.vf_batch_size]
+  npg.fit_value(ts, batch, perm.to(device))
+  out["vf_after"] = _flat_params(vf).clone()
+  return out
+
+
+def _npg_update_errors(cfg, replay: dict) -> dict:
+  """Iteration 0's update on the card in float32 against its replay on the
+  CPU in float64: the natural-gradient step the card took in training, and
+  the start of the value fit replayed on both. Each is the largest
+  parameter difference over the largest parameter change on the CPU; alpha
+  relative."""
+  cpu = _replay_npg_update(cfg, replay, "cpu", torch.float64)
+  card = _replay_npg_update(cfg, replay, DEVICE, torch.float32)
+
+  def rel(after, ref_before, ref_after):
+    return float((after.double().cpu() - ref_after).abs().max()
+                 / (ref_after - ref_before).abs().max())
+
+  return {"policy": rel(replay["policy_after"], cpu["policy_before"],
+                        cpu["policy_after"]),
+          "alpha": abs(replay["alpha"] - cpu["alpha"]) / cpu["alpha"],
+          "value": rel(card["vf_after"], cpu["vf_before"], cpu["vf_after"])}
+
+
+def _moved(before: dict, module) -> bool:
+  """Parameters changed from ``before`` and all finite."""
+  after = module.state_dict()
+  return (any(not torch.equal(before[k], v) for k, v in after.items())
+          and all(bool(torch.isfinite(v).all()) for v in after.values()))
+
+
+def phase_train() -> dict:
+  from myosuite_mjx_tpu_torch.envs import base
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.train import metrics
+  from myosuite_mjx_tpu_torch.train.npg import NPGConfig
+  from myosuite_mjx_tpu_torch.train.ppo import PPO, PPOConfig
+  env = PoseEnv(HAND23, **HAND_POSE_FIXED)
+  npg = _checked_npg()(env, NPGConfig(num_envs=NPG_ENVS), DEVICE)
+  cfg, per_iter = npg.cfg, NPG_ENVS * npg.horizon
+  torch.cuda.synchronize()
+
+  cuda_linalg.spd_solve_cuda.launches = 0
+  with tempfile.TemporaryDirectory() as logdir:
+    with metrics.MetricsWriter(logdir) as writer:
+      ts, history = npg.train(NPG_ITERS * per_iter, seed=TRAIN_SEED,
+                              eval_every=NPG_ITERS, writer=writer)
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+      records = [json.loads(ln) for ln in f]
+  npg_launches = cuda_linalg.spd_solve_cuda.launches
+  _say(f"train NPG init: {npg.init_part['init']:.3f} s, spd_solve launches "
+       f"{npg.init_part['init_launches']}")
+  for it, (rec, parts) in enumerate(zip(history, npg.parts)):
+    step_s = sum(parts[k] for k in NPG_PARTS)
+    rate = per_iter / step_s
+    _say(f"train NPG iter {it}: {NPG_ENVS} x {npg.horizon} = {per_iter} env "
+         f"steps; train step {step_s:.3f} s: {rate:.1f} env-steps/s, "
+         f"{rate * env.frame_skip:.1f} physics-steps/s; rollout spd_solve "
+         f"launches {parts['rollout_launches']}")
+    _say(f"train NPG iter {it} parts (s): rollout {parts['rollout']:.3f}, "
+         f"gae {parts['gae']:.4f}, natural_gradient "
+         f"{parts['natural_gradient']:.4f}, fit_value {parts['fit_value']:.3f}")
+    if "eval_step" in parts:
+      _say(f"train NPG iter {it} eval: 32 envs x {npg.horizon} steps in "
+           f"{parts['eval_step']:.3f} s, spd_solve launches "
+           f"{parts['eval_step_launches']}")
+    _say(f"train NPG iter {it}: realized mean KL {parts['kl']:.5f} beside "
+         f"step_size {cfg.step_size} (bound +-{KL_BAND:.0%}; kl_step_alpha "
+         f"{rec['kl_step_alpha']:.5f})")
+    _say(f"train NPG iter {it} metrics: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "wall"}))
+  _say(f"train NPG: spd_solve launches {npg_launches} (init, rollouts, eval)")
+
+  t0 = time.perf_counter()
+  errs = _npg_update_errors(cfg, npg.replay)
+  for what, err in errs.items():
+    _say(f"train NPG iter 0 card float32 vs cpu float64, same state, batch "
+         f"and permutations, {what}: rel err {err:.3e} (bound "
+         f"{NPG_UPDATE_BOUND[what]:g}) "
+         f"{'ok' if err <= NPG_UPDATE_BOUND[what] else 'FAIL'}")
+  _say(f"train NPG: the replays took {time.perf_counter() - t0:.3f} s")
+
+  class CheckedPPO(_timed(PPO, PPO_PARTS)):
+    def init(self, *args, **kwargs):
+      ts = super().init(*args, **kwargs)
+      self.before = _state_copy(ts.params)
+      return ts
+
+  ppo = CheckedPPO(env, PPOConfig(), DEVICE)
+  ppo_cfg = ppo.cfg
+  ppo_iter = ppo_cfg.num_envs * ppo_cfg.unroll_length
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  pts, ppo_history = ppo.train(ppo_iter, seed=TRAIN_SEED)
+  ppo_launches = cuda_linalg.spd_solve_cuda.launches
+  parts = ppo.parts[0]
+  ppo_s = sum(parts[k] for k in PPO_PARTS)
+  rate = ppo_iter / ppo_s
+  _say(f"train PPO init: {ppo.init_part['init']:.3f} s, spd_solve launches "
+       f"{ppo.init_part['init_launches']}")
+  _say(f"train PPO: {ppo_cfg.num_envs} x {ppo_cfg.unroll_length} = "
+       f"{ppo_iter} env steps, {ppo_cfg.num_minibatches} minibatches x "
+       f"{ppo_cfg.update_epochs} epochs; train step {ppo_s:.3f} s: "
+       f"{rate:.1f} env-steps/s, {rate * env.frame_skip:.1f} "
+       f"physics-steps/s; rollout spd_solve launches "
+       f"{parts['rollout_launches']}, {ppo_launches} with the init")
+  _say(f"train PPO parts (s): rollout {parts['rollout']:.3f}, normalize "
+       f"{parts['normalize']:.4f}, gae {parts['gae']:.4f}, update "
+       f"{parts['update']:.3f}")
+  _say("train PPO metrics: " + json.dumps(
+      {k: v for k, v in ppo_history[0].items() if k != "wall"}))
+
+  if len(history) != NPG_ITERS or len(records) != NPG_ITERS:
+    raise AssertionError(f"{len(history)} NPG iterations, {len(records)} "
+                         f"jsonl records; expected {NPG_ITERS}")
+  if "eval_success" not in history[-1]:
+    raise AssertionError("the NPG eval did not run")
+  for rec in history + ppo_history + records:
+    metrics.check_finite(rec, where="chip_smoke phase 6")
+  for it, parts in enumerate(npg.parts):
+    if not abs(parts["kl"] - cfg.step_size) <= KL_BAND * cfg.step_size:
+      raise AssertionError(f"NPG iter {it}: realized mean KL {parts['kl']} "
+                           f"is not within {KL_BAND:.0%} of {cfg.step_size}")
+  for what, err in errs.items():
+    if not err <= NPG_UPDATE_BOUND[what]:
+      raise AssertionError(f"NPG update on the card and the CPU disagree "
+                           f"({what}: {err})")
+  for name, before, net in (
+      ("NPG policy", npg.replay["policy"], ts.params),
+      ("NPG value", npg.replay["vf"], ts.vf_params),
+      ("PPO actor-critic", ppo.before, pts.params)):
+    if not _moved(before, net):
+      raise AssertionError(f"{name} parameters unchanged or non-finite")
+  if int(ts.steps) != NPG_ITERS * per_iter or int(pts.steps) != ppo_iter:
+    raise AssertionError("env step counts are wrong")
+  if npg_launches <= 0 or ppo_launches <= 0:
+    raise AssertionError("training never launched the SPD kernel")
+  if not base.precision_pinned():
+    raise AssertionError("float32 matmul precision lost its pin")
+  return {"train_launches": npg_launches + ppo_launches}
+
+
+def phase_policy():
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+  from myosuite_mjx_tpu_torch.train import zoo
+  policy = zoo.load_baseline("myoHandPoseFixed-v0", device=DEVICE)
+  benv = BatchedEnv(PoseEnv(HAND23, **HAND_POSE_FIXED), B_MAIN, DEVICE)
+  st = benv.init()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(POLICY_STEPS):
+    action = policy(st.obs)
+    st = benv.step(st, action)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  for name, x in (("action", action), ("obs", st.obs),
+                  ("qpos", st.data.qpos)):
+    if not bool(torch.isfinite(x).all()):
+      raise AssertionError(f"non-finite {name} under the zoo policy")
+  _say(f"policy: zoo myoHandPoseFixed-v0 (policy-mlp-v1, 108-32-32-39) on "
+       f"{B_MAIN} hand23 envs, {POLICY_STEPS} control steps in "
+       f"{seconds:.3f} s; reward mean {float(st.reward.mean()):.4f}, "
+       f"solved {float(st.info['solved'].float().mean()):.4f}")
+
+  B = 16
+  cpu_policy = zoo.load_baseline("myoHandPoseFixed-v0", device="cpu",
+                                 dtype=torch.float64)
+  card = BatchedEnv(PoseEnv(HAND23, **HAND_POSE_FIXED), B, DEVICE)
+  cpu = BatchedEnv(PoseEnv(HAND23, dtype=torch.float64, **HAND_POSE_FIXED),
+                   B, "cpu")
+  sc, sp = card.init(), cpu.init()
+  worst = {}
+  for t in range(POLICY_STEPS + 1):
+    action = policy(sc.obs)
+    ref = cpu_policy(sc.obs.double().cpu())
+    worst["reset" if t == 0 else "after 5 steps"] = float(
+        (action.double().cpu() - ref).abs().max())
+    if t < POLICY_STEPS:
+      sc = card.step(sc, action)
+      sp = cpu.step(sp, action.double().cpu())
+  for what, err in worst.items():
+    ok = err <= POLICY_BOUND
+    _say(f"policy card float32 vs cpu float64, same obs, {what}: max abs "
+         f"action err {err:.3e} (bound {POLICY_BOUND:g}) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"card and CPU policies disagree ({what})")
+  for f, bound in CARD_CPU_BOUND.items():
+    err = float((getattr(sc.data, f).double().cpu()
+                 - getattr(sp.data, f)).abs().max())
+    ok = err <= bound
+    _say(f"policy rollout card vs cpu float64 env, same actions, {f}: max "
+         f"abs err {err:.3e} (bound {bound:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"card and CPU rollouts disagree on {f}")
+
+
+@contextlib.contextmanager
+def _launch_shapes(shapes: set):
+  """Record the [B, n] of every ``linalg.spd_solve`` call on the card made
+  inside (the engine calls it through the module; the launch count stays
+  the kernel wrapper's own)."""
+  from myosuite_mjx_tpu_torch.ops import linalg
+  solve = linalg.spd_solve
+
+  def recording(a, b, factor=False):
+    if b.is_cuda:
+      shapes.add(tuple(b.shape))
+    return solve(a, b, factor)
+
+  linalg.spd_solve = recording
+  try:
+    yield
+  finally:
+    linalg.spd_solve = solve
+
+
 def main() -> int:
   smi = phase_device()
   phase_build()
   kernel = phase_kernel_check()
-  main_path = phase_main_path()
-  phase_card_vs_cpu()
+  shapes: set = set()
+  with _launch_shapes(shapes):
+    main_path = phase_main_path()
+    phase_card_vs_cpu()
+    train = phase_train()
+    phase_policy()
+  unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
+  _say(f"spd_solve shapes launched in phases 4-7: {sorted(shapes)}; not "
+       f"held against the plain version in phase 3: {sorted(unchecked)}")
+  if not shapes or unchecked:
+    raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
+                         f"never checked")
   _say(smi)
   _say(json.dumps({"kernels": [{
       "name": "spd_solve", "route": "cuda",
       "source": "myosuite_mjx_tpu_torch/csrc/spd_solve.cu",
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
-      "launches": main_path["launches"], **kernel}]}))
+      "launches": main_path["launches"], **train, **kernel}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

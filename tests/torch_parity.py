@@ -16,6 +16,7 @@ fixtures from the repo root with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import types
@@ -74,6 +75,39 @@ def assert_close(port, ref, rtol: float, atol: float, what: str = ""):
                              err_msg=what)
 
 
+def assert_tree_close(port, ref, what: str, rtol: float):
+  """Nested dicts with the same keys; each array within ``rtol`` of its
+  reference's largest entry. (Element-wise relative error means nothing on
+  entries that are zero up to rounding: rotation matrices, the moments of
+  a weight whose gradient is near zero.)"""
+  if isinstance(ref, dict):
+    assert sorted(port) == sorted(ref), what
+    for k in ref:
+      assert_tree_close(port[k], ref[k], f"{what}.{k}", rtol)
+  else:
+    scale = float(np.abs(to_np(ref)).max(initial=0.0))
+    assert_close(port, ref, what=what, rtol=0, atol=rtol * scale)
+
+
+def tree_tensors(tree, prefix=""):
+  """(dotted path, tensor) for every tensor in nested dicts."""
+  if isinstance(tree, torch.Tensor):
+    yield prefix, tree
+  elif isinstance(tree, dict):
+    for k, v in tree.items():
+      yield from tree_tensors(v, f"{prefix}.{k}")
+
+
+def as_float64(tree):
+  """A float64 copy of a JAX learner state. flax keeps Dense params in
+  float32 (its default param_dtype) even with x64 on, which rounds the
+  reference's gradients and steps to float32; given float64 params it
+  computes in float64 throughout."""
+  return jax.tree.map(
+      lambda x: x.astype(jnp.float64)
+      if jnp.issubdtype(x.dtype, jnp.floating) else x, tree)
+
+
 def random_states(m, batch: int, seed: int):
   """Joint states over the whole range, a little past the limits at times
   (limit rows active), which drives fingertips into the floor and digits
@@ -104,29 +138,45 @@ def port_batch(jd) -> tdata.Data:
   return tdata.data_from_numpy(jax.tree.map(np.asarray, jd), "cpu")
 
 
-@pytest.fixture
-def jax_pose_env(monkeypatch):
-  """The JAX ``PoseEnv`` class, imported without the env registry.
+def _bare_imported(name: str) -> bool:
+  return name.startswith(("myosuite_mjx_tpu.envs", "myosuite_mjx_tpu.train"))
+
+
+@contextlib.contextmanager
+def bare_envs_package():
+  """Import the JAX ``envs.pose`` and ``train.*`` modules without the env
+  registry.
 
   ``myosuite_mjx_tpu.envs/__init__`` registers every task and needs the
   MyoSuite asset tree. A bare package module with the same ``__path__``
-  lets ``envs.pose`` import; sys.modules is restored afterwards.
+  lets ``envs.base``, ``envs.pose`` and the learners (which import
+  ``envs.base``) import. On exit every ``envs`` and ``train`` module
+  imported inside is dropped and sys.modules is restored.
   """
   import myosuite_mjx_tpu
-  names = ["myosuite_mjx_tpu.envs", "myosuite_mjx_tpu.envs.base",
-           "myosuite_mjx_tpu.envs.pose"]
-  added = [n for n in names if n not in sys.modules]
-  for n in names:
-    monkeypatch.delitem(sys.modules, n, raising=False)
-  pkg = types.ModuleType("myosuite_mjx_tpu.envs")
-  pkg.__path__ = [os.path.join(os.path.dirname(myosuite_mjx_tpu.__file__),
-                               "envs")]
-  monkeypatch.setitem(sys.modules, "myosuite_mjx_tpu.envs", pkg)
-  monkeypatch.setattr(myosuite_mjx_tpu, "envs", pkg, raising=False)
-  from myosuite_mjx_tpu.envs.pose import PoseEnv
-  yield PoseEnv
-  for n in added:
-    sys.modules.pop(n, None)
+  with pytest.MonkeyPatch.context() as mp:
+    before = set(sys.modules)
+    for n in [n for n in sys.modules if _bare_imported(n)]:
+      mp.delitem(sys.modules, n)
+    pkg = types.ModuleType("myosuite_mjx_tpu.envs")
+    pkg.__path__ = [os.path.join(os.path.dirname(myosuite_mjx_tpu.__file__),
+                                 "envs")]
+    mp.setitem(sys.modules, "myosuite_mjx_tpu.envs", pkg)
+    mp.setattr(myosuite_mjx_tpu, "envs", pkg, raising=False)
+    try:
+      yield
+    finally:
+      for n in set(sys.modules) - before:
+        if _bare_imported(n):
+          sys.modules.pop(n)
+
+
+@pytest.fixture
+def jax_pose_env():
+  """The JAX ``PoseEnv`` class (see ``bare_envs_package``)."""
+  with bare_envs_package():
+    from myosuite_mjx_tpu.envs.pose import PoseEnv
+    yield PoseEnv
 
 
 def main(argv=None) -> None:

@@ -47,9 +47,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    5 control steps on the card; at B = 16 its float32 actions on the card
    match the float64 policy on the CPU for the same observations (at reset
    and after 5 steps), and the CPU float64 env driven by the card's actions
-   stays within phase 5's state bounds.
+   stays within phase 5's state bounds;
+8. SAC: ``SAC.train`` on hand23 at the proof recipe's width (32 envs x 8
+   updates per step, ``SACConfig`` defaults otherwise: buffer 131,072,
+   batch 256, hidden (256, 256)) with learning_starts cut from 5000 to 64,
+   for 12 iterations. Prints per iteration the seconds of collection,
+   insert and update (syncs around each, here and not in the learner),
+   env-steps/s, physics-steps/s, SPD-kernel launches and the metrics.
+   Iteration 3's 8 gradient steps are replayed in float64 (and float32) on
+   the CPU from the card's state, minibatch indices and draws. Fails on a
+   non-finite metric, nets, target, alpha or Adam states that move before
+   learning_starts, nets or alpha that do not move after it, a replay off
+   by more than ``SAC_REPLAY_BOUND``, or a wrong buffer cursor or fill;
+9. conditions: fatigue (random reset), sarcopenia, obs_noise 0.01 and a
+   ``PoseEnv`` whose ``reset_overlay`` randomizes all six
+   ``RandomizeSpec`` fields, each for 5 autoreset steps of 16 envs on the
+   card (float32) and on the CPU (float64 and float32) with the same draws
+   (see ``FLOAT32_MARGIN`` for the bounds); then the nominal, overlay and
+   obs_noise envs at B = 4096 in turns (nominal, overlay, obs_noise,
+   obs_noise, overlay, nominal), 14 control steps each with staggered
+   episode clocks, physics-steps/s beside phase 4's; fails if an env that
+   did not reset lost its overlay or one that did kept it.
 
-Every [B, n] at which phases 4-7 launch the kernel must be among those
+Every [B, n] at which phases 4-9 launch the kernel must be among those
 phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -120,6 +140,47 @@ NPG_UPDATE_BOUND = {"policy": 1e-4, "alpha": 1e-4, "value": 1e-4}
 # Float32 against float64 on the CPU gave 4.5e-7; the bound leaves 20x.
 POLICY_BOUND = 1e-5
 POLICY_STEPS = 5
+# phase 8: SAC at the proof recipe's width (tools/prove_sac.py:29-30,
+# train_artifacts/sac_proof: 32 envs x 8 updates per step, SACConfig
+# defaults otherwise), learning_starts cut from 5000 to 64 so that updates
+# begin at the third iteration; SAC_ITERS iterations, and iteration
+# SAC_REPLAY_ITER's 8 gradient steps replayed on the CPU in float64 from the
+# card's state, minibatch indices and draws
+SAC_CFG = dict(num_envs=32, updates_per_step=8, learning_starts=64)
+SAC_ITERS = 12
+SAC_REPLAY_ITER = 3
+SAC_NETS = ("actor", "q", "q_target", "log_alpha")
+# each net's largest difference from the float64 replay over its largest
+# change there. CPU float32 against float64 (this phase on the CPU, hand23
+# at this width) gave 2.6e-4 (actor), 1.7e-5 (q), 4.5e-4 (q_target: its
+# change is tau times the critic's) and 8.7e-8 (log_alpha); the bounds
+# leave 20x and more. The run prints the CPU float32 figure for its own
+# state beside the card's.
+SAC_REPLAY_BOUND = {"actor": 6e-3, "q": 4e-4, "q_target": 1e-2,
+                    "log_alpha": 2e-6}
+# phase 9: the conditions, observation noise and model overlay, at B = 16
+# on the card against the CPU in float64; then the nominal, overlay and
+# obs_noise envs at B_MAIN in turns (PHASE9_ORDER, so that each pair is
+# compared inside one call), PHASE9_STEPS control steps each with the
+# episode clocks staggered, so that envs autoreset in every step of the
+# window. At B = 16 the median env is held to phase
+# 5's bounds, and the worst env to the larger of those and FLOAT32_MARGIN
+# times the worst env of a CPU float32 run of the same variant: randomized
+# physics puts some envs where contacts amplify rounding (CPU float32
+# against float64, worst of 16 envs, qpos: 3.6e-6 without the overlay,
+# 1.7e-4 to 1.1e-3 with it over seeds 0-3; the median env 1.4e-7 in both)
+CONDITIONS = {"fatigue": dict(muscle_condition="fatigue",
+                              fatigue_reset_random=True),
+              "sarcopenia": dict(muscle_condition="sarcopenia"),
+              "obs_noise": dict(obs_noise=0.01),
+              "overlay": {}}
+OVERLAY_SPEC = dict(body_mass=(0.8, 1.2), body_pos=(-0.002, 0.002),
+                    geom_size=(0.9, 1.1), geom_friction=(0.5, 1.5),
+                    dof_damping=(0.5, 2.0), actuator_gain=(0.8, 1.2))
+PHASE9_ORDER = ("nominal", "overlay", "obs_noise", "obs_noise", "overlay",
+                "nominal")
+PHASE9_STEPS = 14
+FLOAT32_MARGIN = 20
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -429,7 +490,8 @@ def phase_main_path() -> dict:
        f"{syncs / timed:.2f} per control step; {timed} timed steps in "
        f"{seconds:.3f} s: {ctrl_rate * env.frame_skip:.1f} physics-steps/s, "
        f"{ctrl_rate:.1f} control-steps/s")
-  return {"launches": launches}
+  return {"launches": launches,
+          "physics_steps_per_s": ctrl_rate * env.frame_skip}
 
 
 def phase_card_vs_cpu():
@@ -465,7 +527,7 @@ def _timed(cls, names: tuple):
   """``cls`` with CUDA syncs at the edges of ``init`` and of each method in
   ``names``, and the seconds and SPD-kernel launches of each: those of
   ``init`` in ``self.init_part``, the others in ``self.parts[-1]``, the
-  record that each ``rollout`` opens for its iteration."""
+  record that each call of ``names[0]`` opens for its iteration."""
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
 
   class Timed(cls):
@@ -476,7 +538,7 @@ def _timed(cls, names: tuple):
 
   def wrap(name):
     def timed(self, *args, **kwargs):
-      if name == "rollout":
+      if name == names[0]:
         self.parts.append({})
       rec = self.init_part if name == "init" else self.parts[-1]
       torch.cuda.synchronize()
@@ -542,7 +604,8 @@ def _replay_npg_update(cfg, replay: dict, device, dtype) -> dict:
   state, batch and permutation the card used, on ``device`` in ``dtype``."""
   from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
   from myosuite_mjx_tpu_torch.train.npg import NPG, NPGState
-  from myosuite_mjx_tpu_torch.train.ppo import RunningNorm, adam
+  from myosuite_mjx_tpu_torch.train.common import adam
+  from myosuite_mjx_tpu_torch.train.ppo import RunningNorm
   npg = NPG(PoseEnv(HAND23, dtype=dtype, **HAND_POSE_FIXED), cfg, device)
   obs_dim = replay["batch"]["obs"].shape[-1]
   policy, vf = npg.make_nets(obs_dim, torch.Generator(device=device))
@@ -761,6 +824,292 @@ def phase_policy():
       raise AssertionError(f"card and CPU rollouts disagree on {f}")
 
 
+def _sac_snapshot(ts) -> dict:
+  """Copies of what the update gate holds: the nets, the target, alpha and
+  the three Adam states."""
+  opt = {}
+  for name, o in (("actor_opt", ts.actor_opt), ("q_opt", ts.q_opt),
+                  ("alpha_opt", ts.alpha_opt)):
+    for i, st in o.state_dict()["state"].items():
+      for k, v in st.items():
+        if torch.is_tensor(v):
+          opt[f"{name}.{i}.{k}"] = v.detach().clone()
+  return {"actor": _flat_params(ts.actor_params).clone(),
+          "q": _flat_params(ts.q_params).clone(),
+          "q_target": _flat_params(ts.q_target).clone(),
+          "log_alpha": ts.log_alpha.detach().clone().reshape(1), **opt}
+
+
+def _checked_sac():
+  """``SAC`` timed by part (collect, insert, update). Every update records
+  whether each net and Adam state moved, and iteration SAC_REPLAY_ITER's
+  keeps in ``replay`` the state, buffer rows and draws it starts from and
+  the nets after it."""
+  from myosuite_mjx_tpu_torch.train.sac import SAC
+
+  class CheckedSAC(_timed(SAC, ("collect", "insert", "update"))):
+    replay: dict | None = None
+
+    def update(self, ts, mb_idx, eps_next, eps_pi):
+      it = len(self.parts) - 1
+      before = _sac_snapshot(ts)
+      if it == SAC_REPLAY_ITER:
+        size = self.cursor(ts)[2]
+        self.replay = dict(
+            steps=ts.steps, actor=_state_copy(ts.actor_params),
+            q=_state_copy(ts.q_params), q_target=_state_copy(ts.q_target),
+            log_alpha=float(ts.log_alpha.detach()),
+            opts={k: copy.deepcopy(getattr(ts, k).state_dict())
+                  for k in ("actor_opt", "q_opt", "alpha_opt")},
+            buffer={k: v[:size].clone() for k, v in ts.buffer.items()},
+            mb_idx=mb_idx.clone(), eps_next=eps_next.clone(),
+            eps_pi=eps_pi.clone())
+      out = super().update(ts, mb_idx, eps_next, eps_pi)
+      after = _sac_snapshot(ts)
+      self.parts[-1]["moved"] = {k: not torch.equal(before[k], after[k])
+                                 for k in before}
+      if it == SAC_REPLAY_ITER:
+        self.replay["after"] = {k: after[k] for k in SAC_NETS}
+      return out
+
+  return CheckedSAC
+
+
+def _replay_sac_update(replay: dict, device, dtype) -> dict:
+  """One iteration's gradient steps again, from the state, buffer rows and
+  draws the card used, on ``device`` in ``dtype``; the nets before and
+  after."""
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+  from myosuite_mjx_tpu_torch.train.common import adam
+  from myosuite_mjx_tpu_torch.train.sac import SAC, SACConfig, SACState
+  sac = SAC(PoseEnv(HAND23, dtype=dtype, **HAND_POSE_FIXED),
+            SACConfig(**SAC_CFG), device)
+  obs_dim = replay["buffer"]["obs"].shape[-1]
+  actor, q, q_target = sac.make_nets(obs_dim, torch.Generator(device=device))
+  for net, key in ((actor, "actor"), (q, "q"), (q_target, "q_target")):
+    net.load_state_dict(replay[key])
+  log_alpha = torch.tensor(replay["log_alpha"], dtype=dtype, device=device,
+                           requires_grad=True)
+  lr = sac.cfg.learning_rate
+  opts = {"actor_opt": adam(actor, lr), "q_opt": adam(q, lr),
+          "alpha_opt": adam([log_alpha], lr)}
+  for k, opt in opts.items():
+    opt.load_state_dict(copy.deepcopy(replay["opts"][k]))
+  ts = SACState(actor_params=actor, q_params=q, q_target=q_target,
+                log_alpha=log_alpha, buffer={
+                    k: v.to(device, dtype) for k, v in replay["buffer"].items()},
+                buf_pos=0, buf_full=False, env_state=None,
+                steps=replay["steps"], **opts)
+  before = _sac_snapshot(ts)
+  sac.update(ts, replay["mb_idx"].to(device),
+             replay["eps_next"].to(device, dtype),
+             replay["eps_pi"].to(device, dtype))
+  after = _sac_snapshot(ts)
+  return {k: (before[k].double().cpu(), after[k].double().cpu())
+          for k in SAC_NETS}
+
+
+def _sac_replay_errors(replay: dict) -> tuple[dict, dict]:
+  """The card's float32 update, and a CPU float32 replay, against the CPU
+  float64 replay: each net's largest parameter difference over its largest
+  change on the CPU."""
+  ref = _replay_sac_update(replay, "cpu", torch.float64)
+  f32 = _replay_sac_update(replay, "cpu", torch.float32)
+
+  def rel(after, k):
+    before64, after64 = ref[k]
+    return float((after.double().cpu() - after64).abs().max()
+                 / (after64 - before64).abs().max())
+
+  return ({k: rel(replay["after"][k], k) for k in SAC_NETS},
+          {k: rel(f32[k][1], k) for k in SAC_NETS})
+
+
+def phase_sac() -> dict:
+  from myosuite_mjx_tpu_torch.envs import base
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.train import metrics
+  from myosuite_mjx_tpu_torch.train.sac import SACConfig
+  env = PoseEnv(HAND23, **HAND_POSE_FIXED)
+  sac = _checked_sac()(env, SACConfig(**SAC_CFG), DEVICE)
+  cfg, N = sac.cfg, sac.cfg.num_envs
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  history = []
+  ts, _ = sac.train(SAC_ITERS * N, seed=TRAIN_SEED,
+                    progress=lambda it, m: history.append(m))
+  launches = cuda_linalg.spd_solve_cuda.launches
+  buf_mb = sum(v.numel() * v.element_size() for v in ts.buffer.values()) / 1e6
+  _say(f"train SAC on hand23: {N} envs x {cfg.updates_per_step} updates per "
+       f"step, batch {cfg.batch_size}, hidden {cfg.hidden}, buffer "
+       f"{cfg.buffer_size} ({buf_mb:.1f} MB on the card), learning_starts "
+       f"{cfg.learning_starts} (the proof recipe's 5000 cut to 64), "
+       f"{SAC_ITERS} iterations; init {sac.init_part['init']:.3f} s, "
+       f"spd_solve launches {sac.init_part['init_launches']}")
+  for it, (rec, parts) in enumerate(zip(history, sac.parts)):
+    step_s = parts["collect"] + parts["insert"] + parts["update"]
+    rate = N / step_s
+    _say(f"train SAC iter {it}: collect {parts['collect']:.4f} s, insert "
+         f"{parts['insert']:.4f} s, update {parts['update']:.4f} s; "
+         f"{rate:.2f} env-steps/s, {rate * env.frame_skip:.1f} "
+         f"physics-steps/s; spd_solve launches {parts['collect_launches']}"
+         f" (update {parts['update_launches']})")
+    _say(f"train SAC iter {it} metrics: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "wall"}))
+  _say(f"train SAC: spd_solve launches {launches} (init and "
+       f"{SAC_ITERS} collections)")
+
+  t0 = time.perf_counter()
+  errs, f32 = _sac_replay_errors(sac.replay)
+  for k in SAC_NETS:
+    _say(f"train SAC iter {SAC_REPLAY_ITER} update, card float32 vs cpu "
+         f"float64, same state, minibatches and draws, {k}: rel err "
+         f"{errs[k]:.3e} (cpu float32 vs float64 {f32[k]:.3e}; bound "
+         f"{SAC_REPLAY_BOUND[k]:g}) "
+         f"{'ok' if errs[k] <= SAC_REPLAY_BOUND[k] else 'FAIL'}")
+  _say(f"train SAC: the replays took {time.perf_counter() - t0:.3f} s")
+
+  for rec in history:
+    metrics.check_finite(rec, where="chip_smoke phase 8")
+  if len(history) != SAC_ITERS:
+    raise AssertionError(f"{len(history)} SAC iterations, not {SAC_ITERS}")
+  for it, parts in enumerate(sac.parts):
+    moved = parts["moved"]
+    if it * N < cfg.learning_starts:
+      if any(moved.values()):
+        raise AssertionError(f"SAC iter {it} (before learning_starts) moved "
+                             f"{sorted(k for k, v in moved.items() if v)}")
+    elif not all(moved[k] for k in SAC_NETS):
+      raise AssertionError(f"SAC iter {it}: the nets or alpha did not move")
+  for k in SAC_NETS:
+    if not errs[k] <= SAC_REPLAY_BOUND[k]:
+      raise AssertionError(f"SAC update on the card and the CPU disagree "
+                           f"({k}: {errs[k]})")
+  pos = SAC_ITERS * N
+  filled = ts.buffer["obs"].abs().sum(-1) > 0
+  if ((ts.buf_pos, ts.buf_full, ts.steps) != (pos, False, pos)
+      or not bool(filled[:pos].all()) or bool(filled[pos:].any())):
+    raise AssertionError(f"SAC buffer cursor {ts.buf_pos} (full "
+                         f"{ts.buf_full}, steps {ts.steps}), expected {pos}")
+  if launches <= 0:
+    raise AssertionError("SAC never launched the SPD kernel")
+  if not base.precision_pinned():
+    raise AssertionError("float32 matmul precision lost its pin")
+  return {"sac_launches": launches}
+
+
+def _condition_env(name: str, dtype=torch.float32):
+  """hand23 PoseEnv under one of CONDITIONS; the overlay variant draws all
+  six RandomizeSpec fields per env at every reset."""
+  from myosuite_mjx_tpu_torch.envs import randomize
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+
+  class OverlayPoseEnv(PoseEnv):
+    def reset_overlay(self, batch, device, aux, generator):
+      return randomize.sample_overlay(
+          self.model, randomize.RandomizeSpec(**OVERLAY_SPEC), batch,
+          generator, device, self.dtype)
+
+  cls = OverlayPoseEnv if name == "overlay" else PoseEnv
+  return cls(HAND23, dtype=dtype, **HAND_POSE_FIXED,
+             **CONDITIONS.get(name, {}))
+
+
+def phase_conditions(phase4_rate: float) -> dict:
+  """Phase 9; ``phase4_rate`` is phase 4's physics-steps/s in this call."""
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  B = 16
+  actions = np.random.default_rng(0).uniform(0.0, 1.0, (5, B, 39))
+  for name in CONDITIONS:
+    out = {}
+    for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float64),
+                          ("cpu", torch.float32)):
+      env = _condition_env(name, dtype)
+      # one CPU generator for all: the same draws, copied to the card
+      g = torch.Generator().manual_seed(0)
+      st = env.reset(B, device, g)
+      for a in actions:
+        st = env.autoreset_step(
+            st, torch.as_tensor(a, dtype=dtype, device=device), g)
+      out[device, dtype] = st
+    card, ref = out[DEVICE, torch.float32], out["cpu", torch.float64]
+    cpu32 = out["cpu", torch.float32]
+    for f, bound in CARD_CPU_BOUND.items():
+      err = (getattr(card.data, f).double().cpu()
+             - getattr(ref.data, f)).abs().amax(-1)
+      err32 = float((getattr(cpu32.data, f).double()
+                     - getattr(ref.data, f)).abs().max())
+      worst_bound = max(bound, FLOAT32_MARGIN * err32)
+      worst, median = float(err.max()), float(err.median())
+      ok = worst <= worst_bound and median <= bound
+      _say(f"conditions {name}: card float32 vs cpu float64 after 5 steps, "
+           f"{f}: max abs err worst env {worst:.3e} (bound "
+           f"{worst_bound:.3g}; cpu float32 {err32:.3e}), median env "
+           f"{median:.3e} (bound {bound:g}) {'ok' if ok else 'FAIL'}")
+      if not ok:
+        raise AssertionError(f"{name}: card and CPU disagree on {f}")
+    obs_err = float((card.obs.double().cpu() - ref.obs).abs().max())
+    _say(f"conditions {name}: obs max abs err {obs_err:.3e}")
+
+  rates: dict = {}
+  for name in PHASE9_ORDER:
+    env = _condition_env(name)
+    benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
+    st = benv.init()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    st = st.replace(steps=torch.randint(0, env.horizon, (B_MAIN,),
+                                        generator=g, device=DEVICE,
+                                        dtype=torch.int32))
+    first = ({k: v.clone() for k, v in st.data.overlay.items()}
+             if name == "overlay" else None)
+    restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    t0 = None
+    for i in range(PHASE9_STEPS):
+      if i == WARMUP:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      action = torch.rand((B_MAIN, env.action_dim), generator=g,
+                          device=DEVICE)
+      st = benv.step(st, action)
+      restarted |= st.info["terminated"] | st.info["truncated"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rate = (PHASE9_STEPS - WARMUP) * B_MAIN / seconds
+    for what, x in (("obs", st.obs), ("reward", st.reward),
+                    ("qpos", st.data.qpos)):
+      if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{name}: non-finite {what} at B={B_MAIN}")
+    n_reset = int(restarted.sum())
+    if not 0 < n_reset < B_MAIN:
+      raise AssertionError(f"{name}: {n_reset} of {B_MAIN} envs reset")
+    if first is not None:
+      for k, v in st.data.overlay.items():
+        kept = (v == first[k]).reshape(B_MAIN, -1).all(-1)
+        if not bool(torch.equal(kept, ~restarted)):
+          raise AssertionError(f"overlay {k}: kept where an env reset, or "
+                               f"replaced where none did")
+    rates.setdefault(name, []).append(rate * env.frame_skip)
+    _say(f"conditions {name} B={B_MAIN}: {PHASE9_STEPS} control steps, "
+         f"{n_reset} envs autoreset; {PHASE9_STEPS - WARMUP} timed steps in "
+         f"{seconds:.3f} s: {rate * env.frame_skip:.1f} physics-steps/s, "
+         f"{rate:.1f} control-steps/s")
+  mean = {k: float(np.mean(v)) for k, v in rates.items()}
+  _say(f"conditions B={B_MAIN}, physics-steps/s over the turns "
+       f"{PHASE9_ORDER}: " + ", ".join(
+           f"{k} {v:.1f} ({v / mean['nominal']:.3f} of nominal)"
+           for k, v in mean.items())
+       + f"; phase 4 of this call {phase4_rate:.1f}")
+  launches = cuda_linalg.spd_solve_cuda.launches
+  _say(f"conditions: spd_solve launches {launches}")
+  if launches <= 0:
+    raise AssertionError("phase 9 never launched the SPD kernel")
+  return {"conditions_launches": launches}
+
+
 @contextlib.contextmanager
 def _launch_shapes(shapes: set):
   """Record the [B, n] of every ``linalg.spd_solve`` call on the card made
@@ -791,8 +1140,10 @@ def main() -> int:
     phase_card_vs_cpu()
     train = phase_train()
     phase_policy()
+    sac = phase_sac()
+    conditions = phase_conditions(main_path["physics_steps_per_s"])
   unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
-  _say(f"spd_solve shapes launched in phases 4-7: {sorted(shapes)}; not "
+  _say(f"spd_solve shapes launched in phases 4-9: {sorted(shapes)}; not "
        f"held against the plain version in phase 3: {sorted(unchecked)}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
@@ -802,7 +1153,8 @@ def main() -> int:
       "name": "spd_solve", "route": "cuda",
       "source": "myosuite_mjx_tpu_torch/csrc/spd_solve.cu",
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
-      "launches": main_path["launches"], **train, **kernel}]}))
+      "launches": main_path["launches"], **train, **sac, **conditions,
+      **kernel}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

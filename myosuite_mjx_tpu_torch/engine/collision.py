@@ -317,21 +317,26 @@ def _capsule_capsule(g1pos, g1mat, r1, h1, g2pos, g2mat, r2, h2):
 
 def _narrow(types, p1, m1, s1, p2, m2, s2):
   if types == (GeomType.PLANE, GeomType.CAPSULE):
-    return _plane_capsule(p1, m1, p2, m2, s2[:, 0], s2[:, 1])
+    return _plane_capsule(p1, m1, p2, m2, s2[..., 0], s2[..., 1])
   if types == (GeomType.CAPSULE, GeomType.CAPSULE):
-    return _capsule_capsule(p1, m1, s1[:, 0], s1[:, 1],
-                            p2, m2, s2[:, 0], s2[:, 1])
+    return _capsule_capsule(p1, m1, s1[..., 0], s1[..., 1],
+                            p2, m2, s2[..., 0], s2[..., 1])
   raise NotImplementedError(f"narrowphase for {types}")
 
 
 def narrowphase_all(m: DeviceModel, d: Data, spec: _CollisionSpec):
   """All candidate contact points in slot order: dist [B, C], pos and n
-  [B, C, 3]."""
+  [B, C, 3]. ``overlay["geom_size"]`` [B, ngeom, 3] replaces the sizes per
+  env."""
+  sizes = d.overlay.get("geom_size")
   dists, poss, ns = [], [], []
   for g in spec.groups:
+    if sizes is None:
+      s1, s2 = g.size1, g.size2                                # [G, 3]
+    else:
+      s1, s2 = sizes[:, g.g1], sizes[:, g.g2]                  # [B, G, 3]
     pts = _narrow(g.types, d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1],
-                  g.size1, d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2],
-                  g.size2)
+                  s1, d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], s2)
     for di, po, nn in pts:
       dists.append(di)
       poss.append(po)
@@ -379,6 +384,16 @@ def contacts(m: DeviceModel, d: Data, max_contacts: int | None = None):
   im_k = ftab[..., 14]
   viol = dist_k - im_k
   itab = spec.itab[idx]                                       # [B, k, 5]
+  if "geom_friction" in d.overlay:
+    # per-env geom frictions [B, ngeom, 3], recombined per contact by the
+    # plain max of the two geoms, as the reference's overlay path does: it
+    # ignores geom_priority and explicit <pair> frictions, which the static
+    # table (_combine) honours
+    gf = d.overlay["geom_friction"]
+    rows = torch.arange(B, device=gf.device)[:, None]
+    f3 = torch.maximum(gf[rows, itab[..., 2]], gf[rows, itab[..., 3]])
+    fric = torch.stack([f3[..., 0], f3[..., 0], f3[..., 1], f3[..., 2],
+                        f3[..., 2]], dim=-1)
   frame = make_frame(n_k)                                     # [B, k, 3, 3]
 
   # directional point-jacobian rows for the three frame axes at once:

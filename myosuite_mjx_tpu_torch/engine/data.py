@@ -2,8 +2,11 @@
 
 Counterpart of ``myosuite_mjx_tpu/engine/data.py`` with a written-out
 batch: every field is ``[B, ...]`` where the JAX ``Data`` is one env's
-state under ``vmap``. Field names are the reference's. Model overlays
-(domain randomization) are not ported yet, so there is no ``overlay``.
+state under ``vmap``. Field names are the reference's. ``overlay`` holds
+per-env overrides of model constants (domain randomization, see
+``envs/randomize.py``), each ``[B, ...]``; the engine reads ``body_pos``,
+``body_mass``, ``actuator_gainprm``, ``actuator_biasprm``, ``dof_damping``,
+``geom_size`` and ``geom_friction`` from it in place of the model's.
 """
 from __future__ import annotations
 
@@ -88,6 +91,8 @@ class Data:
   ncon_dropped: torch.Tensor   # [B] int
   # ---- sensors ----
   sensordata: torch.Tensor     # [B, nsensordata]
+  # ---- model overlay (per-env domain randomization) ----
+  overlay: dict = dataclasses.field(default_factory=dict)
 
   def replace(self, **kw) -> "Data":
     return dataclasses.replace(self, **kw)
@@ -171,5 +176,6 @@ def data_from_numpy(tree, device: str | torch.device = "cuda"):
   contact = Contact(**{f.name: t(getattr(tree.contact, f.name))
                        for f in dataclasses.fields(Contact)})
   fields = {f.name: t(getattr(tree, f.name)) for f in dataclasses.fields(Data)
-            if f.name != "contact"}
-  return Data(contact=contact, **fields)
+            if f.name not in ("contact", "overlay")}
+  overlay = {k: t(v) for k, v in tree.overlay.items()}
+  return Data(contact=contact, overlay=overlay, **fields)

@@ -40,8 +40,8 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_position(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
-  kin = smooth.kinematics(m, d.qpos, full_data=full_data)
-  subtree_com, cinert, cdof = smooth.com_pos(m, kin)
+  kin = smooth.kinematics(m, d.qpos, full_data=full_data, overlay=d.overlay)
+  subtree_com, cinert, cdof = smooth.com_pos(m, kin, d.overlay)
   ten_length, ten_J = tendon_mod.tendon(m, kin, cdof)
   if m.ntendon:
     ten_length = ten_length + tendon_mod.fixed_tendon_length(m, d.qpos)
@@ -196,26 +196,33 @@ def fwd_actuation(m: DeviceModel, d: Data) -> Data:
 
   length = d.actuator_length
   vel = d.actuator_velocity
-  gp, bp = s.gainprm, s.biasprm
+  # the gain DR overlay gives per-env prm [B, nu, 9]; the static ones are
+  # [nu, 9], hence the leading ellipsis on every index below
+  gp = d.overlay.get("actuator_gainprm", s.gainprm)[..., :9]
+  bp = d.overlay.get("actuator_biasprm", s.biasprm)[..., :9]
   gain = torch.zeros_like(ctrl)
-  if s.gain_fixed.numel():
-    gain[:, s.gain_fixed] = gp[s.gain_fixed, 0].expand(B, -1)
+  g = s.gain_fixed
+  if g.numel():
+    gain[:, g] = gp[..., g, 0].expand(B, -1)
   g = s.gain_affine
   if g.numel():
-    gain[:, g] = gp[g, 0] + gp[g, 1] * length[:, g] + gp[g, 2] * vel[:, g]
+    gain[:, g] = (gp[..., g, 0] + gp[..., g, 1] * length[:, g]
+                  + gp[..., g, 2] * vel[:, g])
   g = s.gain_muscle
   if g.numel():
     gain[:, g] = muscle_mod.muscle_gain(
         length[:, g], vel[:, g], m.actuator_lengthrange[g],
-        m.actuator_acc0[g], gp[g])
+        m.actuator_acc0[g], gp[..., g, :])
   bias = torch.zeros_like(ctrl)
   b = s.bias_affine
   if b.numel():
-    bias[:, b] = bp[b, 0] + bp[b, 1] * length[:, b] + bp[b, 2] * vel[:, b]
+    bias[:, b] = (bp[..., b, 0] + bp[..., b, 1] * length[:, b]
+                  + bp[..., b, 2] * vel[:, b])
   b = s.bias_muscle
   if b.numel():
     bias[:, b] = muscle_mod.muscle_bias(
-        length[:, b], m.actuator_lengthrange[b], m.actuator_acc0[b], bp[b])
+        length[:, b], m.actuator_lengthrange[b], m.actuator_acc0[b],
+        bp[..., b, :])
 
   force = gain * act_input + bias
   force = torch.where(m.actuator_forcelimited,
@@ -254,7 +261,7 @@ def fwd_passive(m: DeviceModel, d: Data) -> Data:
   if m.opt.disableflags & DSBL_PASSIVE:
     return d.replace(qfrc_passive=torch.zeros_like(d.qvel))
   s = m.spec("passive", _PassiveSpec)
-  qfrc = -m.dof_damping * d.qvel
+  qfrc = -d.overlay.get("dof_damping", m.dof_damping) * d.qvel
   if s.spring_qadr.numel():
     qfrc = qfrc.index_add(1, s.spring_dadr, -s.spring_k * (
         d.qpos[:, s.spring_qadr] - s.spring_q0))
@@ -360,12 +367,17 @@ def _clamp_act(m: DeviceModel, act: torch.Tensor) -> torch.Tensor:
 
 def euler(m: DeviceModel, d: Data) -> Data:
   """Semi-implicit Euler with implicit joint damping:
-  (M + h D) qacc = qfrc_smooth + qfrc_constraint."""
+  (M + h D) qacc = qfrc_smooth + qfrc_constraint.
+
+  A damping overlay [B, nv] always takes the implicit solve, even where the
+  model's own damping is zero (so does the reference).
+  """
   dt = m.opt.timestep
   s = m.spec("integrate", _IntegrateSpec)
-  if s.damping is not None:
+  damping = d.overlay.get("dof_damping", s.damping)
+  if damping is not None:
     qfrc = d.qfrc_smooth + d.qfrc_constraint
-    qacc = linalg.spd_solve(d.qM + dt * torch.diag(s.damping), qfrc)
+    qacc = linalg.spd_solve(d.qM + dt * torch.diag_embed(damping), qfrc)
   else:
     qacc = d.qacc
   qvel = d.qvel + dt * qacc

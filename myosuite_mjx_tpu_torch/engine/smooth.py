@@ -192,18 +192,23 @@ def body_dof_mask(m: DeviceModel) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True):
+def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True,
+               overlay: dict | None = None):
   """Body, joint, site and geom world poses for qpos [B, nq].
 
   ``full_data=False`` leaves out ``xmat`` and ``site_xmat``, which nothing
   in a physics step reads (the frame-skip loop asks for them on its last
-  substep only).
+  substep only). ``overlay["body_pos"]`` [B, nbody, 3] replaces the local
+  body offsets per env.
   """
   B = qpos.shape[0]
   dtype = qpos.dtype
   spec = tree_spec(m)
   nb = m.nbody
-  t_loc = m.body_pos.expand(B, nb, 3).clone()
+  if overlay and "body_pos" in overlay:
+    t_loc = overlay["body_pos"].clone()
+  else:
+    t_loc = m.body_pos.expand(B, nb, 3).clone()
   q_loc = m.body_quat.expand(B, nb, 4).clone()
   anchor_rel = qpos.new_zeros((B, max(m.njnt, 1), 3))
   axis_rel = qpos.new_zeros((B, max(m.njnt, 1), 3))
@@ -267,13 +272,18 @@ def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def com_pos(m: DeviceModel, kin: dict):
-  """subtree_com [B, nbody, 3], cinert [B, nbody, 10], cdof [B, nv, 6]."""
+def com_pos(m: DeviceModel, kin: dict, overlay: dict | None = None):
+  """subtree_com [B, nbody, 3], cinert [B, nbody, 10], cdof [B, nv, 6].
+
+  ``overlay["body_mass"]`` [B, nbody] replaces the masses per env; the
+  inertia tensors stay nominal, as in the reference.
+  """
   xipos, ximat = kin["xipos"], kin["ximat"]
   B = xipos.shape[0]
   spec = tree_spec(m)
-  mass = m.body_mass
-  wsum = mass[:, None] * xipos
+  mass = (overlay["body_mass"] if overlay and "body_mass" in overlay
+          else m.body_mass)
+  wsum = mass[..., None] * xipos
   msum = mass.expand(B, -1).clone()
   for lv in reversed(spec.levels):
     wsum.index_add_(1, lv.parents, wsum[:, lv.ids])

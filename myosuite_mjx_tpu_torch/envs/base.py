@@ -12,11 +12,20 @@ One control step maps the action to muscle ctrl (sigmoid), runs
 substep reads are kept up to date, as XLA's dead-code elimination gives
 the reference's substep scan.
 
+Muscle conditions (``muscle_condition``): ``sarcopenia`` halves every
+actuator's F_max, ``fatigue`` runs the 3CC-r model (``envs/fatigue.py``) on
+the muscle ctrl once per control step, ``reafferentation`` reroutes the
+EIP command to EPL. ``obs_noise`` builds obs and reward from a noisy
+observed twin of the physics (one more forward pass per state built);
+``state.data`` stays the ground truth. ``reset_overlay`` is the hook for
+per-env model overlays (``envs/randomize.py``).
+
 Randomness: the reference carries a JAX key per env. Here a ``BatchedEnv``
-holds one ``torch.Generator`` and hands it to ``reset``. The fixed-target,
-init-reset pose task draws nothing from it. Tasks with random targets or
-resets draw different numbers than JAX does from the same seed, so their
-parity tests must make those inputs with numpy and give them to both.
+holds one ``torch.Generator`` and hands it to ``reset`` and ``step``. The
+fixed-target, init-reset pose task draws nothing from it. Tasks, conditions
+and noise that draw take different numbers than JAX does from the same
+seed; their draws go through ``draw_fatigue``, ``draw_obs_noise`` and the
+task's hooks, which a parity test overrides to hand in JAX's draws.
 """
 from __future__ import annotations
 
@@ -31,6 +40,10 @@ from myosuite_mjx_tpu_torch.engine import forward as forward_mod
 from myosuite_mjx_tpu_torch.engine import model as model_mod
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DynType, JointType, TrnType
+from myosuite_mjx_tpu_torch.envs import fatigue
+from myosuite_mjx_tpu_torch.envs.randomize import uniform
+
+MUSCLE_CONDITIONS = ("", "sarcopenia", "fatigue", "reafferentation")
 
 
 @dataclasses.dataclass
@@ -94,14 +107,23 @@ class MyoEnv:
                weighted_reward_keys: dict | None = None,
                normalize_act: bool = True, horizon: int = 100,
                obs_noise: float = 0.0, dtype: torch.dtype = torch.float32,
-               muscle_condition: str = "", **task_kwargs):
-    if muscle_condition:
-      raise NotImplementedError(
-          f"muscle_condition={muscle_condition!r} is not ported yet")
-    if obs_noise:
-      raise NotImplementedError("obs_noise is not ported yet")
+               muscle_condition: str = "",
+               fatigue_reset_random: bool = False, **task_kwargs):
+    if muscle_condition not in MUSCLE_CONDITIONS:
+      raise ValueError(f"muscle_condition {muscle_condition!r} is not one "
+                       f"of {MUSCLE_CONDITIONS}")
     pin_float32_precision()
     self.model = model_mod.load_npz(model_path)
+    self.muscle_condition = muscle_condition
+    self.fatigue_reset_random = fatigue_reset_random
+    if muscle_condition == "sarcopenia":
+      # weaker muscles: half the max force, on the host model, before any
+      # DeviceModel (whose actuation spec caches gainprm) is built
+      gp = np.array(self.model.actuator_gainprm)
+      gp[:, 2] = 0.5 * gp[:, 2]
+      self.model = model_mod.Model(**{**self.model.__dict__,
+                                      "actuator_gainprm": gp})
+    self.obs_noise = float(obs_noise)
     self.dtype = dtype
     self.frame_skip = frame_skip
     self.horizon = horizon
@@ -126,6 +148,11 @@ class MyoEnv:
     self.init_qvel = np.zeros(m.nv)
     self._muscle_mask = np.asarray(m.actuator_dyntype == DynType.MUSCLE)
     self.action_dim = int(m.nu)
+    if muscle_condition == "reafferentation":
+      # the EIP -> EPL tendon transfer
+      self._epl = m.name2id("actuator", "EPL")
+      self._eip = m.name2id("actuator", "EIP")
+    self._fatigue_idx = np.where(self._muscle_mask)[0]
     self._device_models: dict[torch.device, model_mod.DeviceModel] = {}
     self._setup(**task_kwargs)
 
@@ -142,6 +169,11 @@ class MyoEnv:
     qpos = torch.as_tensor(self.init_qpos, device=device).to(self.dtype)
     qvel = torch.as_tensor(self.init_qvel, device=device).to(self.dtype)
     return qpos.expand(batch, -1).clone(), qvel.expand(batch, -1).clone()
+
+  def reset_overlay(self, batch: int, device, aux: dict, generator) -> dict:
+    """Per-env model-constant overrides for the new episodes (domain
+    randomization, ``envs/randomize.py``): field -> [B, ...]."""
+    return {}
 
   def get_obs_dict(self, data: Data, aux: dict) -> dict:
     raise NotImplementedError
@@ -178,9 +210,61 @@ class MyoEnv:
       return torch.where(mask, sig, lin)
     return lin
 
-  def _mk_state(self, data: Data, aux: dict, steps) -> EnvState:
-    obs_dict = self.get_obs_dict(data, aux)
-    rwd = self.get_reward_dict(obs_dict, data, aux)
+  # ---- draws (a parity test overrides these to hand in JAX's) -----------
+
+  def draw_fatigue(self, batch: int, device, generator):
+    """Two U(0, 1) draws [B, n_muscles] for ``fatigue.random_state``."""
+    shape = (batch, len(self._fatigue_idx))
+    return (uniform(shape, generator, device, self.dtype),
+            uniform(shape, generator, device, self.dtype))
+
+  def draw_obs_noise(self, data: Data, generator) -> dict:
+    """U(-1, 1) draws shaped like qpos, qvel and act."""
+    return {k: uniform(tuple(getattr(data, k).shape), generator,
+                       data.qpos.device, self.dtype, -1.0, 1.0)
+            for k in ("qpos", "qvel", "act")}
+
+  # ---- muscle conditions and observation noise ----------------------------
+
+  def _fatigue_spec(self, dm: model_mod.DeviceModel):
+    mus = self._fatigue_idx
+    return (torch.as_tensor(mus, device=dm.device),
+            dm.tensor(self.model.actuator_dynprm[mus, 0]),
+            dm.tensor(self.model.actuator_dynprm[mus, 1]))
+
+  def _apply_muscle_condition(self, ctrl: torch.Tensor, aux: dict):
+    """The per-step ctrl transform of the fatigue and reafferentation
+    conditions; returns (ctrl, aux)."""
+    if self.muscle_condition == "fatigue":
+      idx, tauact, taudeact = self.device_model(ctrl.device).spec(
+          "fatigue", self._fatigue_spec)
+      eff, state = fatigue.compute_act(aux["fatigue"], ctrl[:, idx], tauact,
+                                       taudeact, self.dt)
+      return ctrl.index_copy(1, idx, eff), {**aux, "fatigue": state}
+    if self.muscle_condition == "reafferentation":
+      ctrl = ctrl.clone()
+      ctrl[:, self._epl] = ctrl[:, self._eip]
+      ctrl[:, self._eip] = 0.0
+    return ctrl, aux
+
+  def observed_data(self, data: Data, noise: dict) -> Data:
+    """The noisy observed twin of the ground-truth physics: obs_noise times
+    the U(-1, 1) ``noise`` added to qpos, qvel and act (clipped to [0, 1]),
+    then one full forward pass with constraints."""
+    s = self.obs_noise
+    d = data.replace(qpos=data.qpos + s * noise["qpos"],
+                     qvel=data.qvel + s * noise["qvel"])
+    if self.model.na:
+      d = d.replace(act=torch.clamp(data.act + s * noise["act"], 0.0, 1.0))
+    return forward_mod.forward(self.device_model(data.qpos.device), d)
+
+  def _mk_state(self, data: Data, aux: dict, steps,
+                generator: torch.Generator | None = None) -> EnvState:
+    # obs and reward from the observed Data, as the reference's
+    d_obs = (self.observed_data(data, self.draw_obs_noise(data, generator))
+             if self.obs_noise else data)
+    obs_dict = self.get_obs_dict(d_obs, aux)
+    rwd = self.get_reward_dict(obs_dict, d_obs, aux)
     dense = sum(wt * rwd[key] for key, wt in self.rwd_keys_wt.items())
     B = data.qpos.shape[0]
     done = rwd["done"].to(torch.bool)
@@ -206,20 +290,33 @@ class MyoEnv:
     caller asks for the CPU)."""
     dm = self.device_model(device)
     aux = self.reset_aux(batch, dm.device, generator)
+    if self.muscle_condition == "fatigue":
+      aux["fatigue"] = (
+          fatigue.random_state(*self.draw_fatigue(batch, dm.device,
+                                                  generator))
+          if self.fatigue_reset_random else
+          fatigue.init_state(batch, len(self._fatigue_idx), self.dtype,
+                             dm.device))
     qpos, qvel = self.reset_qpos_qvel(batch, dm.device, aux, generator)
     d = data_mod.make_data(dm, batch, self.dtype, dm.device)
-    d = d.replace(qpos=qpos.to(self.dtype), qvel=qvel.to(self.dtype))
+    d = d.replace(qpos=qpos.to(self.dtype), qvel=qvel.to(self.dtype),
+                  overlay=self.reset_overlay(batch, dm.device, aux,
+                                             generator))
     d = forward_mod.forward(dm, d, constraint=self.RESET_CONSTRAINT)
-    return self._mk_state(d, aux, 0)
+    return self._mk_state(d, aux, 0, generator)
 
-  def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
-    """One control step: ctrl from the action, then frame_skip substeps."""
+  def step(self, state: EnvState, action: torch.Tensor,
+           generator: torch.Generator | None = None) -> EnvState:
+    """One control step: ctrl from the action and the muscle condition,
+    then frame_skip substeps."""
     dm = self.device_model(state.data.qpos.device)
-    d = state.data.replace(ctrl=self._action_to_ctrl(action.to(self.dtype)))
+    ctrl, aux = self._apply_muscle_condition(
+        self._action_to_ctrl(action.to(self.dtype)), state.aux)
+    d = state.data.replace(ctrl=ctrl)
     for _ in range(self.frame_skip - 1):
       d = forward_mod.step(dm, d, full_data=False)
     d = forward_mod.step(dm, d, full_data=True)
-    return self._mk_state(d, state.aux, state.steps + 1)
+    return self._mk_state(d, aux, state.steps + 1, generator)
 
   def truncated(self, state: EnvState) -> torch.Tensor:
     return state.steps >= self.horizon
@@ -229,8 +326,9 @@ class MyoEnv:
     """step() with an automatic reset of every env that is done or at the
     horizon. The result keeps the pre-reset ``done``, reward, rwd_dense,
     rwd_sparse, solved, terminated and truncated; its physics, obs and
-    steps are the fresh episode's."""
-    nxt = self.step(state, action)
+    steps are the fresh episode's; an env that resets takes the fresh
+    episode's model overlay and condition state, the others keep theirs."""
+    nxt = self.step(state, action, generator)
     fresh = self.reset(nxt.obs.shape[0], nxt.obs.device, generator)
     terminated = nxt.done
     truncated = self.truncated(nxt) & ~terminated
@@ -263,9 +361,12 @@ class BatchedEnv:
 def state_from_numpy(tree, device="cuda") -> EnvState:
   """Carry a batched JAX ``EnvState`` (leaves as numpy) into the port; the
   per-env JAX keys (``rng``) have no counterpart and are dropped."""
-  t = lambda x: torch.as_tensor(np.array(x), device=device)
+  def t(x):
+    if isinstance(x, dict):
+      return {k: t(v) for k, v in x.items()}
+    return torch.as_tensor(np.array(x), device=device)
+
   return EnvState(
       data=data_mod.data_from_numpy(tree.data, device), obs=t(tree.obs),
       reward=t(tree.reward), done=t(tree.done), steps=t(tree.steps),
-      info={k: t(v) for k, v in tree.info.items()},
-      aux={k: t(v) for k, v in tree.aux.items()})
+      info=t(tree.info), aux=t(tree.aux))

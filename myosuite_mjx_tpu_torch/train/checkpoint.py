@@ -17,6 +17,8 @@ import pickle
 import torch
 from torch import nn
 
+from myosuite_mjx_tpu_torch.train.common import flax_params
+
 _MISSING = object()
 
 
@@ -145,6 +147,5 @@ def restore(path: str, template):
 def save_params(path: str, params: nn.Module) -> None:
   """Policy-only export: a pickle of the net's parameters as the JAX
   package's flax tree of numpy arrays (what its ``save_params`` writes)."""
-  from myosuite_mjx_tpu_torch.train.ppo import flax_params
   with open(path, "wb") as f:
     pickle.dump(flax_params(params), f)

@@ -39,10 +39,10 @@ import torch
 from torch import nn
 
 from myosuite_mjx_tpu_torch.envs.base import MyoEnv
-from myosuite_mjx_tpu_torch.train.ppo import (RunningNorm, adam,
-                                              gaussian_logp, load_adam_state,
-                                              load_flax_params,
-                                              metrics_to_host, mlp,
+from myosuite_mjx_tpu_torch.train.common import (adam, load_adam_state,
+                                                 load_flax_params,
+                                                 metrics_to_host, mlp)
+from myosuite_mjx_tpu_torch.train.ppo import (RunningNorm, gaussian_logp,
                                               norm_from_numpy)
 
 
@@ -203,7 +203,7 @@ class NPG:
       mean, log_std = ts.params(obs)
       act = mean + torch.exp(log_std) * noise[t]
       logp = gaussian_logp(mean, log_std, act)
-      nxt = self.env.step(st, act.clamp(-1.0, 1.0))
+      nxt = self.env.step(st, act.clamp(-1.0, 1.0), generator)
       for k, v in (
           ("obs", obs), ("obs_raw", st.obs), ("act", act), ("logp", logp),
           ("reward", nxt.info["rwd_dense"] * live), ("live", live),
@@ -370,7 +370,7 @@ class NPG:
       obs = (ts.obs_norm.apply(st.obs, cfg.norm_clip)
              if cfg.normalize_obs else st.obs)
       mean, _ = ts.params(obs)
-      st = self.env.step(st, mean.clamp(-1.0, 1.0))
+      st = self.env.step(st, mean.clamp(-1.0, 1.0), generator)
       solved = st.info["solved"].to(self.dtype)
       cnt = cnt + solved
       rew = rew + st.info["rwd_dense"]

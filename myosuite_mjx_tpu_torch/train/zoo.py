@@ -20,8 +20,8 @@ import pickle
 import numpy as np
 import torch
 
-from myosuite_mjx_tpu_torch.train.ppo import (ActorCritic, flax_params,
-                                              load_flax_params)
+from myosuite_mjx_tpu_torch.train.common import flax_params, load_flax_params
+from myosuite_mjx_tpu_torch.train.ppo import ActorCritic
 
 ZOO_DIR = os.environ.get(
     "MYOSUITE_TPU_ZOO",

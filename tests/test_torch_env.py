@@ -112,7 +112,8 @@ def test_float32_rollout_keeps_every_dtype():
             else torch.bool if name in _BOOL_FIELDS else torch.float32)
     assert x.dtype == want, f"{name}: {x.dtype}"
     assert x.shape[0] == B, name
-  n_data = len(dataclasses.fields(Data)) - 1 + len(dataclasses.fields(Contact))
+  # every Data field but contact and the (here empty) overlay is a tensor
+  n_data = len(dataclasses.fields(Data)) - 2 + len(dataclasses.fields(Contact))
   assert len(seen) == n_data + 4 + 5 + 1   # obs, reward, done, steps; info; aux
 
 
@@ -150,10 +151,14 @@ def test_generated_targets_and_random_resets_use_the_generator():
 
 
 def test_unported_options_raise():
-  with pytest.raises(NotImplementedError):
-    PoseEnv(NPZ[2], muscle_condition="sarcopenia",
+  """The muscle conditions and obs_noise are ported (test_torch_conditions);
+  an unknown condition, and reafferentation on a model without an EIP
+  muscle (hand11), still raise."""
+  with pytest.raises(ValueError, match="muscle_condition"):
+    PoseEnv(NPZ[2], muscle_condition="sarcopenia2",
             target_jnt_value=HAND_TARGET[:11])
-  with pytest.raises(NotImplementedError):
-    PoseEnv(NPZ[2], obs_noise=0.01, target_jnt_value=HAND_TARGET[:11])
+  with pytest.raises(KeyError, match="EIP"):
+    PoseEnv(NPZ[2], muscle_condition="reafferentation",
+            target_jnt_value=HAND_TARGET[:11])
   with pytest.raises(FileNotFoundError):
     PoseEnv("no/such/model.npz", target_jnt_value=HAND_TARGET[:11])

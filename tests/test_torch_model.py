@@ -19,7 +19,8 @@ from myosuite_mjx_tpu_torch.assets.fixtures import hand_fixture_xml
 from myosuite_mjx_tpu_torch.engine import collision
 from myosuite_mjx_tpu_torch.engine import data as tdata
 from myosuite_mjx_tpu_torch.engine import model as tmodel
-from myosuite_mjx_tpu_torch.envs import base
+from myosuite_mjx_tpu_torch.envs import base, fatigue, randomize
+from myosuite_mjx_tpu_torch.train import sac
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 # top-level packages the port and chip_smoke.py must not import
@@ -139,7 +140,8 @@ def test_port_sources_import_no_jax_flax_mujoco_or_jax_package():
 
 @pytest.mark.parametrize("fn", [
     base.MyoEnv.reset, base.BatchedEnv.__init__, base.state_from_numpy,
-    tmodel.DeviceModel.__init__, tdata.make_data, tdata.data_from_numpy],
+    tmodel.DeviceModel.__init__, tdata.make_data, tdata.data_from_numpy,
+    sac.SAC.__init__, randomize.sample_overlay, fatigue.init_state],
                          ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
   assert inspect.signature(fn).parameters["device"].default == "cuda"

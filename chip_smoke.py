@@ -69,7 +69,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    episode clocks, physics-steps/s beside phase 4's; fails if an env that
    did not reset lost its overlay or one that did kept it.
 
-Every [B, n] at which phases 4-9 launch the kernel must be among those
+10. CLI: ``python -m myosuite_mjx_tpu_torch.train.cli`` in process on
+   ``hand23ReachRandom-v0``: (a) one NPG iteration at the zoo run's width
+   (512 x 100) with a checkpoint; (b) SAC at the proof recipe's width (32
+   envs x 8 updates; learning_starts 64 as in phase 8, the two set as
+   ``SACConfig`` defaults since the CLI has no flags for them), 6
+   iterations straight, and 3 with a checkpoint then ``--resume`` to 6
+   from the same seed. Prints env-steps/s, seconds per iteration and SPD
+   launches of each run. Fails unless the metrics are finite, the
+   checkpoints exist, the resumed run starts at iteration 4 with env_steps
+   continuing, and its nets equal the straight run's within
+   ``SAC_REPLAY_BOUND`` of each net's change (the card's index_add is not
+   deterministic, so bit equality is not expected);
+11. ``prove_sac`` on ``hand23ReachRandom-v0`` at its width (learning_starts
+   64), 384 env steps and one deterministic eval of 32 episodes x 100
+   steps, its JSON written to a temporary ``--out`` and printed; prints
+   eval_success, eval_score and the seconds (no success level is a pass
+   condition at this length);
+12. ball, free and mocap: ``engine.api.Physics`` on the ``free10`` fixture
+   (a hinge-ball chain, a free body landing on a plane and a bar, the bar
+   on a mocap body): 16 envs for 50 substeps on the card (float32) against
+   the CPU (float64; the CPU float32 figure printed beside the bound),
+   then B = 4096 for 400 substeps, timed after the first 10; prints
+   physics-steps/s and the active contacts; fails unless the free bodies
+   come to rest on their contacts.
+
+Every [B, n] at which phases 4-12 launch the kernel must be among those
 phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -77,6 +102,8 @@ The line before the last is the kernels' JSON record; the last line is
 """
 import contextlib
 import copy
+import functools
+import io
 import json
 import os
 import re
@@ -96,10 +123,11 @@ B_MAIN = 4096
 STEPS = 105
 WARMUP = 2
 HAND23 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "hand23.npz")
+FREE10 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "free10.npz")
 # the kernel is built for these padded sizes: cover each and its ends, and
-# n = 1
+# n = 1; 10 is free10's nv (phase 12)
 PADDED_SIZES = (8, 16, 24, 32, 64)
-SIZES = (1, 4, 8, 11, 16, 17, 23, 24, 32, 33, 64)
+SIZES = (1, 4, 8, 10, 11, 16, 17, 23, 24, 32, 33, 64)
 # the batches the paths launch the kernel at: the card side of phases 5 and
 # 7, the NPG eval, the PPO rollout, the NPG rollout and the main path
 PATH_BATCHES = (16, 32, 128, 512, B_MAIN)
@@ -181,6 +209,24 @@ PHASE9_ORDER = ("nominal", "overlay", "obs_noise", "obs_noise", "overlay",
                 "nominal")
 PHASE9_STEPS = 14
 FLOAT32_MARGIN = 20
+# phase 10: the CLI on this task; SAC at the proof recipe's width, run
+# straight for CLI_SAC_ITERS iterations and in two legs split at
+# CLI_SAC_SPLIT
+CLI_ENV = "hand23ReachRandom-v0"
+CLI_SAC_ITERS = 6
+CLI_SAC_SPLIT = 3
+# phase 11: prove_sac's length (12 iterations and one eval)
+PROOF_STEPS = 384
+# phase 12: free10 at B = 16 for FREE_STEPS substeps, card float32 against
+# CPU float64. CPU float32 against float64 gave 3.1e-6 (qpos) and 8.1e-4
+# (qvel, of 9.3 peak); the bounds leave 25-30x. Then B_MAIN envs for
+# FREE_WINDOW substeps: by then the median env's free body moves slower
+# than FREE_REST (CPU float32, 16 envs: 0.0075 after 400 substeps)
+FREE_STEPS = 50
+FREE_CPU_BOUND = {"qpos": 1e-4, "qvel": 2e-2}
+FREE_WINDOW = 400
+FREE_REST = 0.05
+BAR_POS = (0.0, 0.0, 0.015)
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1110,6 +1156,243 @@ def phase_conditions(phase4_rate: float) -> dict:
   return {"conditions_launches": launches}
 
 
+def _cli(argv: list) -> dict:
+  """``train.cli.main(argv)``; its JSON records, the returned state, the
+  seconds and the SPD launches of the call."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.train import cli
+  torch.cuda.synchronize()
+  n0, t0 = cuda_linalg.spd_solve_cuda.launches, time.perf_counter()
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    state = cli.main(argv)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  lines = out.getvalue().splitlines()
+  for ln in lines:
+    _say(f"  cli: {ln}")
+  return {"state": state, "seconds": seconds,
+          "records": [json.loads(ln) for ln in lines if ln.startswith("{")],
+          "launches": cuda_linalg.spd_solve_cuda.launches - n0}
+
+
+@contextlib.contextmanager
+def _sac_defaults(**kw):
+  """``SACConfig`` with other defaults, for settings the CLI has no flag
+  for (the JAX package's CLI has none either)."""
+  from myosuite_mjx_tpu_torch.train import sac
+  cls = sac.SACConfig
+  sac.SACConfig = functools.partial(cls, **kw)
+  try:
+    yield
+  finally:
+    sac.SACConfig = cls
+
+
+def _sac_nets(ts) -> dict:
+  return {"actor": _flat_params(ts.actor_params),
+          "q": _flat_params(ts.q_params),
+          "q_target": _flat_params(ts.q_target),
+          "log_alpha": ts.log_alpha.detach().reshape(1)}
+
+
+def phase_cli() -> dict:
+  """Phase 10: the training CLI on the card."""
+  from myosuite_mjx_tpu_torch import envs
+  from myosuite_mjx_tpu_torch.train import metrics
+  from myosuite_mjx_tpu_torch.train.sac import SAC, SACConfig
+  base = ["--env", CLI_ENV, "--device", DEVICE, "--log-every", "1"]
+  with tempfile.TemporaryDirectory() as tmp:
+    ck = lambda name, it: os.path.join(tmp, name, f"iter_{it:07d}")
+    npg_steps = NPG_ENVS * 100
+    npg = _cli(base + ["--algo", "npg", "--num-envs", str(NPG_ENVS),
+                       "--total-steps", str(npg_steps), "--checkpoint-dir",
+                       os.path.join(tmp, "npg"), "--logdir",
+                       os.path.join(tmp, "npg", "log")])
+    rec = npg["records"][-1]
+    _say(f"cli NPG {CLI_ENV}: {NPG_ENVS} x 100 = {npg_steps} env steps in "
+         f"{rec['wall_s']:.3f} s of iteration ({npg_steps / rec['wall_s']:.1f}"
+         f" env-steps/s, {10 * npg_steps / rec['wall_s']:.1f} "
+         f"physics-steps/s); {npg['seconds']:.3f} s with the init and the "
+         f"checkpoint; spd_solve launches {npg['launches']}")
+
+    N = SAC_CFG["num_envs"]
+    sac_kw = {k: v for k, v in SAC_CFG.items() if k != "num_envs"}
+    sac_args = base + ["--algo", "sac", "--num-envs", str(N),
+                       "--checkpoint-every", str(CLI_SAC_SPLIT)]
+    with _sac_defaults(**sac_kw):
+      straight = _cli(sac_args + [
+          "--total-steps", str(CLI_SAC_ITERS * N),
+          "--checkpoint-dir", os.path.join(tmp, "straight")])
+      first = _cli(sac_args + [
+          "--total-steps", str(CLI_SAC_SPLIT * N),
+          "--checkpoint-dir", os.path.join(tmp, "split")])
+      resumed = _cli(sac_args + [
+          "--total-steps", str(CLI_SAC_ITERS * N),
+          "--checkpoint-dir", os.path.join(tmp, "split"),
+          "--resume", ck("split", CLI_SAC_SPLIT)])
+      cfg = SACConfig(num_envs=N)
+    files = [ck("npg", 1), ck("straight", CLI_SAC_SPLIT),
+             ck("straight", CLI_SAC_ITERS), ck("split", CLI_SAC_SPLIT),
+             ck("split", CLI_SAC_ITERS)]
+    missing = [f for f in files if not os.path.exists(f)]
+    sizes = {os.path.basename(os.path.dirname(f)) + "/" + os.path.basename(f):
+             os.path.getsize(f) for f in files if os.path.exists(f)}
+  _say(f"cli checkpoints (bytes): {sizes}")
+
+  # where the straight run's nets started: the same seed's init
+  env = envs.make(CLI_ENV)
+  init = _sac_nets(SAC(env, cfg, DEVICE).init(
+      generator=torch.Generator(device=DEVICE).manual_seed(0)))
+  a, b = _sac_nets(straight["state"]), _sac_nets(resumed["state"])
+  errs = {k: float((a[k] - b[k]).abs().max() / (a[k] - init[k]).abs().max())
+          for k in SAC_NETS}
+  for name, run in (("straight", straight), ("first leg", first),
+                    ("resumed", resumed)):
+    recs = run["records"]
+    per = [r["wall_s"] for r in recs]
+    its = [per[0]] + [y - x for x, y in zip(per, per[1:])]
+    _say(f"cli SAC {name}: iterations {[r['iter'] for r in recs]}, env_steps "
+         f"{[r['env_steps'] for r in recs]}; s per iteration "
+         f"{[round(x, 3) for x in its]}; env-steps/s after the first "
+         f"{[r['steps_per_s'] for r in recs[1:]]}; {run['seconds']:.3f} s "
+         f"in all; spd_solve launches {run['launches']}")
+  for k in SAC_NETS:
+    _say(f"cli SAC resumed vs straight, {k}: max abs diff over the straight "
+         f"run's largest change {errs[k]:.3e} (bound {SAC_REPLAY_BOUND[k]:g})"
+         f" {'ok' if errs[k] <= SAC_REPLAY_BOUND[k] else 'FAIL'}")
+
+  for run in (npg, straight, first, resumed):
+    for rec in run["records"]:
+      metrics.check_finite(rec, where="chip_smoke phase 10")
+  if missing:
+    raise AssertionError(f"checkpoints not written: {missing}")
+  got = [(r["iter"], r["env_steps"]) for r in resumed["records"]]
+  want = [(i, i * N) for i in range(CLI_SAC_SPLIT + 1, CLI_SAC_ITERS + 1)]
+  if got != want or straight["state"].steps != CLI_SAC_ITERS * N:
+    raise AssertionError(f"the resumed run logged {got}, expected {want}")
+  for k in SAC_NETS:
+    if not errs[k] <= SAC_REPLAY_BOUND[k]:
+      raise AssertionError(f"resumed SAC differs from the straight run ({k}:"
+                           f" {errs[k]})")
+  launches = sum(r["launches"] for r in (npg, straight, first, resumed))
+  if min(r["launches"] for r in (npg, straight, first, resumed)) <= 0:
+    raise AssertionError("a CLI run never launched the SPD kernel")
+  return {"cli_launches": launches}
+
+
+def phase_prove_sac() -> dict:
+  """Phase 11: tools/prove_sac.py on the card."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.tools import prove_sac
+  from myosuite_mjx_tpu_torch.train import metrics
+  torch.cuda.synchronize()
+  n0, t0 = cuda_linalg.spd_solve_cuda.launches, time.perf_counter()
+  with tempfile.TemporaryDirectory() as out_dir:
+    res = prove_sac.main([
+        "--env", CLI_ENV, "--total-steps", str(PROOF_STEPS),
+        "--eval-every-steps", str(PROOF_STEPS), "--config",
+        json.dumps(SAC_CFG), "--out", out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    path = os.path.join(out_dir, f"{CLI_ENV}.json")
+    with open(path) as f:
+      written = json.load(f)
+  _say(f"prove_sac wrote {os.path.basename(path)}: {json.dumps(written)}")
+  launches = cuda_linalg.spd_solve_cuda.launches - n0
+  ev = res["history"][-1]
+  _say(f"prove_sac {CLI_ENV}: {PROOF_STEPS} env steps ({SAC_CFG}) and one "
+       f"eval of 32 episodes x 100 steps in {seconds:.3f} s ({ev['wall']} s "
+       f"of training and eval at the record); eval_success "
+       f"{ev['eval_success']}, eval_solved_frac {ev['eval_solved_frac']:.5f},"
+       f" eval_score {ev['eval_score']:.4f}; spd_solve launches {launches}")
+  if len(res["history"]) != 1 or written != json.loads(json.dumps(res)):
+    raise AssertionError("prove_sac did not evaluate once and write its JSON")
+  metrics.check_finite(ev, where="chip_smoke phase 11")
+  if launches <= 0:
+    raise AssertionError("prove_sac never launched the SPD kernel")
+  return {"prove_sac_launches": launches}
+
+
+def _free_start(phys, batch: int):
+  """``batch`` free10 envs: the bar on the plane, the chain's swing and the
+  free body's position offset per env, small random velocities."""
+  rng = np.random.default_rng(0)
+  d = phys.make_data(batch)
+  qpos = d.qpos.double().cpu().numpy()
+  qpos[:, 0] += rng.uniform(-0.3, 0.3, batch)
+  qpos[:, 5:8] += rng.uniform(-0.005, 0.005, (batch, 3))
+  qvel = rng.normal(scale=0.2, size=(batch, phys.model.nv))
+  t = lambda x: torch.as_tensor(x, dtype=phys.dtype, device=phys.device)
+  return d.replace(qpos=t(qpos), qvel=t(qvel),
+                   mocap_pos=t(np.tile(BAR_POS, (batch, 1, 1))))
+
+
+def phase_physics() -> dict:
+  """Phase 12: ball and free joints and a mocap body through Physics."""
+  from myosuite_mjx_tpu_torch.engine import api
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  out = {}
+  for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float64),
+                        ("cpu", torch.float32)):
+    phys = api.load(FREE10, dtype, device)
+    d = _free_start(phys, 16)
+    for _ in range(FREE_STEPS):
+      d = phys.step(d)
+    out[device, dtype] = d
+  card, ref = out[DEVICE, torch.float32], out["cpu", torch.float64]
+  for f, bound in FREE_CPU_BOUND.items():
+    err = float((getattr(card, f).double().cpu() - getattr(ref, f)).abs().max())
+    err32 = float((getattr(out["cpu", torch.float32], f).double()
+                   - getattr(ref, f)).abs().max())
+    ok = err <= bound
+    _say(f"physics free10 B=16, {FREE_STEPS} substeps, card float32 vs cpu "
+         f"float64, {f}: max abs err {err:.3e} (bound {bound:g}; cpu float32 "
+         f"{err32:.3e}; peak |{f}| {float(getattr(ref, f).abs().max()):.3f})"
+         f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"free10: card and CPU disagree on {f}")
+
+  phys = api.load(FREE10, torch.float32, DEVICE)
+  d = _free_start(phys, B_MAIN)
+  advance = phys.step_n(10)
+  d = advance(d)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(FREE_WINDOW // 10 - 1):
+    d = advance(d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  rate = (FREE_WINDOW - 10) * B_MAIN / seconds
+  rod = phys.model.name2id("body", "rod")
+  free_dofs = slice(int(phys.model.body_dofadr[rod]),
+                    int(phys.model.body_dofadr[rod]) + 6)
+  speed = d.qvel[:, free_dofs].abs().amax(-1)
+  active = (d.contact.dist < 0).sum(-1)
+  touching = float((active > 0).float().mean())
+  median = float(speed.median())
+  _say(f"physics free10 B={B_MAIN}: {FREE_WINDOW} substeps, "
+       f"{FREE_WINDOW - 10} timed in {seconds:.3f} s: {rate:.1f} "
+       f"physics-steps/s; active contacts per env at the end "
+       f"{float(active.float().mean()):.3f} (envs touching "
+       f"{touching:.4f}), ne_active mean "
+       f"{float(d.ne_active.float().mean()):.3f}; free body speed median "
+       f"{median:.4f} (bound {FREE_REST}), max {float(speed.max()):.4f}; "
+       f"spd_solve launches {cuda_linalg.spd_solve_cuda.launches}")
+  for name, x in (("qpos", d.qpos), ("qvel", d.qvel)):
+    if not bool(torch.isfinite(x).all()):
+      raise AssertionError(f"free10: non-finite {name} at B={B_MAIN}")
+  if not (median <= FREE_REST and touching == 1.0):
+    raise AssertionError("free10: the free bodies did not come to rest on "
+                         "their contacts")
+  if cuda_linalg.spd_solve_cuda.launches <= 0:
+    raise AssertionError("phase 12 never launched the SPD kernel")
+  return {"physics_launches": cuda_linalg.spd_solve_cuda.launches,
+          "physics_steps_per_s": rate}
+
+
 @contextlib.contextmanager
 def _launch_shapes(shapes: set):
   """Record the [B, n] of every ``linalg.spd_solve`` call on the card made
@@ -1130,20 +1413,31 @@ def _launch_shapes(shapes: set):
     linalg.spd_solve = solve
 
 
+def _timed_phase(number: int, fn, *args):
+  t0 = time.perf_counter()
+  out = fn(*args)
+  _say(f"phase {number}: {time.perf_counter() - t0:.1f} s")
+  return out
+
+
 def main() -> int:
   smi = phase_device()
-  phase_build()
-  kernel = phase_kernel_check()
+  _timed_phase(2, phase_build)
+  kernel = _timed_phase(3, phase_kernel_check)
   shapes: set = set()
   with _launch_shapes(shapes):
-    main_path = phase_main_path()
-    phase_card_vs_cpu()
-    train = phase_train()
-    phase_policy()
-    sac = phase_sac()
-    conditions = phase_conditions(main_path["physics_steps_per_s"])
+    main_path = _timed_phase(4, phase_main_path)
+    _timed_phase(5, phase_card_vs_cpu)
+    train = _timed_phase(6, phase_train)
+    _timed_phase(7, phase_policy)
+    sac = _timed_phase(8, phase_sac)
+    conditions = _timed_phase(9, phase_conditions,
+                              main_path["physics_steps_per_s"])
+    cli_run = _timed_phase(10, phase_cli)
+    proof = _timed_phase(11, phase_prove_sac)
+    physics = _timed_phase(12, phase_physics)
   unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
-  _say(f"spd_solve shapes launched in phases 4-9: {sorted(shapes)}; not "
+  _say(f"spd_solve shapes launched in phases 4-12: {sorted(shapes)}; not "
        f"held against the plain version in phase 3: {sorted(unchecked)}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
@@ -1154,6 +1448,7 @@ def main() -> int:
       "source": "myosuite_mjx_tpu_torch/csrc/spd_solve.cu",
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
       "launches": main_path["launches"], **train, **sac, **conditions,
+      **cli_run, **proof, "physics_launches": physics["physics_launches"],
       **kernel}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@ cmc_flexion, mp_flexion, ip_flexion, then mcpN_flexion, mcpN_abduction,
 pmN_flexion, mdN_flexion for each finger). Bones are capsules with joint
 limits, damping and armature over a ground plane.
 
+Each distal phalanx carries a massless site at its far end, named as
+MyoHand's fingertip sites (``THtip``, ``IFtip``, ``MFtip``, ``RFtip``,
+``LFtip``), for the reach tasks.
+
 Every actuator is a muscle on a spatial tendon routed over sites. The
 routes use sphere wraps with and without a side site, cylinder wraps with a
 side site outside the geom, and one cylinder wrap whose side site lies
@@ -18,6 +22,9 @@ digit to digit so that no two candidate pairs are mirror images.
 ``digits=5`` gives hand23 (nv 23, nu = na = 39: wrist 6, thumb 9 and four
 fingers of 6 muscles), the width of MyoHand. ``digits=2`` gives hand11
 (nv 11, nu 21), small enough for the CPU parity tests.
+
+``free_fixture_xml()`` is a small rigid-body scene for ball and free joints
+and mocap bodies (see its docstring).
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ _FINGERS = (
     (-0.0398, 0.0079, 0.035, 0.021, 0.017),
 )
 _THUMB_LEN = (0.035, 0.030, 0.022)
+# MyoHand's fingertip site names, for fingers k = 2 (index) ... 5 (little);
+# the thumb's is THtip
+_TIPS = {2: "IFtip", 3: "MFtip", 4: "RFtip", 5: "LFtip"}
 _THUMB_RADIUS = 0.0095
 
 
@@ -92,6 +102,7 @@ def _thumb_body() -> str:
             {_phalanx_inertial(0.007, l2, r * 0.9)}
             <joint name="ip_flexion" axis="0 1 0.1" range="-0.9 0.8" damping="0.01" armature="0.0001"/>
             {_capsule("thumb_dist_bone", l2, r * 0.9, ct2, ca2, margin=0.001)}
+            <site name="THtip" pos="{_f(l2, 0, 0)}"/>
             <site name="thumb_dist_fpl" pos="0.01 0 -0.0092"/>
             <site name="thumb_dist_epl" pos="0.01 0 0.0091"/>
           </body>
@@ -130,6 +141,7 @@ def _finger_body(k: int, y: float, r: float, l0: float, l1: float,
             {_phalanx_inertial(0.005 + 0.0004 * k, l2, r * 0.9)}
             <joint name="md{k}_flexion" axis="0 1 0" range="-0.2 1.4" damping="0.008" armature="0.00008"/>
             {_capsule(f"f{k}_dist_bone", l2, r * 0.9, ctd, cad, margin=0.001)}
+            <site name="{_TIPS[k]}" pos="{_f(l2, 0, 0)}"/>
             <site name="f{k}_dist_fdp" pos="0.009 0 -0.0093"/>
             <site name="f{k}_dist_edc" pos="0.009 0 0.0092"/>
           </body>
@@ -257,5 +269,50 @@ def hand_fixture_xml(digits: int = 5) -> str:
   <actuator>
     {actuators}
   </actuator>
+</mujoco>
+"""
+
+
+def free_fixture_xml() -> str:
+  """MJCF text of the ball/free/mocap scene ("free10": nq 12, nv 10).
+
+  - a hinge-ball chain of two capsules hanging from a fixed point, tilted
+    so that it swings under gravity (hinge about y, then a ball joint);
+  - a free body of two crossed capsules that falls onto the plane across
+    a bar and comes to rest touching both (a lone capsule would roll on
+    for ever: the pyramidal cone has no rolling friction);
+  - the bar: a capsule on a mocap body lying on the plane (it collides
+    with the free body only). ``Data.mocap_pos`` starts at the origin, as
+    in the reference's ``make_data``: set it to (0, 0, 0.015) to lay the
+    bar on the plane.
+
+  Only plane-capsule and capsule-capsule pairs, the ported narrowphase.
+  The chain collides with nothing. Hinge and ball joints are damped, so
+  the integrator takes the implicit solve; the free joint is not.
+  """
+  return """<mujoco model="free_fixture">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="0.5 0.5 0.05" contype="1" conaffinity="1"/>
+    <body name="chain_root" pos="0.3 0 0.3" euler="0 0.6 0">
+      <joint name="swing" type="hinge" axis="0 1 0" damping="0.002" armature="0.0001"/>
+      <geom name="link1" type="capsule" fromto="0 0 0 0 0 -0.1" size="0.012" contype="2" conaffinity="0"/>
+      <body name="chain_tip" pos="0 0 -0.1" euler="0.5 0 0.3">
+        <joint name="wrist" type="ball" damping="0.001" armature="0.00005"/>
+        <geom name="link2" type="capsule" fromto="0 0 0 0.02 0 -0.08" size="0.01" contype="2" conaffinity="0"/>
+        <site name="chain_end" pos="0.02 0 -0.08"/>
+      </body>
+    </body>
+    <body name="rod" pos="0.06 0.004 0.06" euler="0.05 0.1 0.2">
+      <freejoint name="rod_free"/>
+      <geom name="rod_geom" type="capsule" fromto="-0.08 0 0 0.08 0 0" size="0.01" contype="1" conaffinity="5"/>
+      <geom name="rod_cross" type="capsule" fromto="0.03 -0.05 0 0.03 0.05 0" size="0.01" contype="1" conaffinity="5"/>
+      <site name="rod_end" pos="0.08 0 0"/>
+    </body>
+    <body name="bar" mocap="true" pos="0 0 0.015">
+      <geom name="bar_geom" type="capsule" fromto="0 -0.1 0 0 0.1 0" size="0.015" contype="4" conaffinity="0"/>
+    </body>
+  </worldbody>
 </mujoco>
 """

@@ -16,7 +16,7 @@ import torch
 
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import (
-    DSBL_CONSTRAINT, DSBL_CONTACT, DSBL_LIMIT, DeviceModel, JointType)
+    DSBL_CONSTRAINT, DSBL_CONTACT, DSBL_LIMIT, DeviceModel)
 
 _MINVAL = 1e-15
 _MINIMP = 0.0001
@@ -71,11 +71,9 @@ class _LimitSpec:
 
 def _build_limit_spec(m: DeviceModel) -> _LimitSpec:
   h = m.host
-  jl = [j for j in range(h.njnt) if bool(h.jnt_limited[j])]
-  for j in jl:
-    if int(h.jnt_type[j]) not in (JointType.HINGE, JointType.SLIDE):
-      raise NotImplementedError("ball joint limits")
-  jl = np.asarray(jl, np.int64)
+  # hinge and slide only: DeviceModel refuses limits on ball joints
+  jl = np.asarray([j for j in range(h.njnt) if bool(h.jnt_limited[j])],
+                  np.int64)
   t = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=m.device)
   dadr = h.jnt_dofadr[jl]
   return _LimitSpec(

@@ -27,6 +27,7 @@ from myosuite_mjx_tpu_torch.engine.model import (
     DSBL_ACTUATION, DSBL_CLAMPCTRL, DSBL_PASSIVE, BiasType, DeviceModel,
     DynType, GainType, JointType, TrnType)
 from myosuite_mjx_tpu_torch.ops import linalg
+from myosuite_mjx_tpu_torch.ops import quat as qmath
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +41,8 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_position(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
-  kin = smooth.kinematics(m, d.qpos, full_data=full_data, overlay=d.overlay)
+  kin = smooth.kinematics(m, d.qpos, full_data=full_data, overlay=d.overlay,
+                          mocap_pos=d.mocap_pos, mocap_quat=d.mocap_quat)
   subtree_com, cinert, cdof = smooth.com_pos(m, kin, d.overlay)
   ten_length, ten_J = tendon_mod.tendon(m, kin, cdof)
   if m.ntendon:
@@ -72,9 +74,6 @@ def _build_trn_spec(m: DeviceModel) -> _TrnSpec:
     raise NotImplementedError(f"transmission types {sorted(bad)}")
   tid = np.asarray(h.actuator_trnid[:, 0])
   ju = np.where(trn == TrnType.JOINT)[0]
-  if not np.isin(h.jnt_type[tid[ju]], (JointType.HINGE,
-                                       JointType.SLIDE)).all():
-    raise NotImplementedError("joint transmission on ball/free joints")
   tu = np.where(trn == TrnType.TENDON)[0]
   t = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=m.device)
   return _TrnSpec(
@@ -242,10 +241,8 @@ class _PassiveSpec:
   def __init__(self, m: DeviceModel):
     h = m.host
     t = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=m.device)
+    # hinge and slide only: DeviceModel refuses springs on ball and free
     sprung = np.where(np.asarray(h.jnt_stiffness) != 0.0)[0]
-    if not np.isin(np.asarray(h.jnt_type)[sprung],
-                   (JointType.HINGE, JointType.SLIDE)).all():
-      raise NotImplementedError("spring on ball/free joint")
     qadr = np.asarray(h.jnt_qposadr)[sprung]
     self.spring_qadr = t(qadr)
     self.spring_dadr = t(np.asarray(h.jnt_dofadr)[sprung])
@@ -327,9 +324,15 @@ def forward(m: DeviceModel, d: Data, constraint: bool = True,
 
 
 def _integrate_pos(m: DeviceModel, qpos, qvel, dt) -> torch.Tensor:
-  """qpos += dt * qvel for hinge and slide joints (the ported types)."""
+  """qpos += dt * qvel: hinge, slide and free-joint positions in one
+  vectorized add; ball and free-joint quaternions by ``quat_integrate``
+  (local-frame angular velocity, then normalize), all at once."""
   s = m.spec("integrate", _IntegrateSpec)
-  return qpos.index_add(1, s.qadr, dt * qvel[:, s.vadr])
+  out = qpos.index_add(1, s.qadr, dt * qvel[:, s.vadr])
+  if s.quat_qadr.numel():
+    out[:, s.quat_qadr] = qmath.quat_integrate(
+        qpos[:, s.quat_qadr], qvel[:, s.quat_vadr], dt)
+  return out
 
 
 class _IntegrateSpec:
@@ -337,9 +340,19 @@ class _IntegrateSpec:
   def __init__(self, m: DeviceModel):
     h = m.host
     t = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=m.device)
-    hs = np.where(np.isin(h.jnt_type, (JointType.HINGE, JointType.SLIDE)))[0]
-    self.qadr = t(h.jnt_qposadr[hs])
-    self.vadr = t(h.jnt_dofadr[hs])
+    jt = np.asarray(h.jnt_type)
+    hs = np.where(np.isin(jt, (JointType.HINGE, JointType.SLIDE)))[0]
+    free = np.where(jt == JointType.FREE)[0]
+    ball = np.where(jt == JointType.BALL)[0]
+    three, four = np.arange(3), np.arange(4)
+    qa, va = np.asarray(h.jnt_qposadr), np.asarray(h.jnt_dofadr)
+    self.qadr = t(np.concatenate([qa[hs], (qa[free, None] + three).ravel()]))
+    self.vadr = t(np.concatenate([va[hs], (va[free, None] + three).ravel()]))
+    # [K, 4] quaternions in qpos and [K, 3] their angular velocities
+    self.quat_qadr = t(np.concatenate([qa[ball, None] + four,
+                                       qa[free, None] + 3 + four]))
+    self.quat_vadr = t(np.concatenate([va[ball, None] + three,
+                                       va[free, None] + 3 + three]))
     lo = np.full(h.na, -np.inf)
     hi = np.full(h.na, np.inf)
     for u in range(h.nu):

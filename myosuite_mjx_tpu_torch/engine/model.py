@@ -278,16 +278,25 @@ def _to_tensor(x: np.ndarray, dtype, device, default_float=None):
 
 
 def _check_supported(m: Model) -> None:
-  """Raise for model features whose engine paths are not ported yet."""
-  bad = set(np.unique(m.jnt_type).tolist()) - {int(JointType.HINGE),
-                                               int(JointType.SLIDE)}
-  if bad:
-    raise NotImplementedError(
-        f"joint types {sorted(bad)}: only hinge and slide joints are ported")
+  """Raise for model features whose engine paths are not ported yet.
+
+  Every joint type and mocap bodies are ported. What the JAX package
+  refuses when it traces the step is refused here, when the model is
+  loaded: limits on ball joints (its ``engine/constraint.py``), and joint
+  transmission and springs on ball and free joints (its
+  ``engine/forward.py``).
+  """
+  jt = np.asarray(m.jnt_type)
+  quat_joint = (jt == JointType.BALL) | (jt == JointType.FREE)
+  if np.any(quat_joint & np.asarray(m.jnt_limited, bool)):
+    raise NotImplementedError("ball joint limits")
+  if np.any(quat_joint & (np.asarray(m.jnt_stiffness) != 0.0)):
+    raise NotImplementedError("spring on ball/free joint")
+  trn_joint = np.asarray(m.actuator_trntype) == TrnType.JOINT
+  if np.any(quat_joint[np.asarray(m.actuator_trnid)[trn_joint, 0]]):
+    raise NotImplementedError("joint transmission on ball/free joints")
   if m.neq:
     raise NotImplementedError("equality constraints are not ported yet")
-  if m.nmocap:
-    raise NotImplementedError("mocap bodies are not ported yet")
   if int(m.opt.integrator) != IntegratorType.EULER:
     raise NotImplementedError(f"integrator {int(m.opt.integrator)}")
   if int(m.opt.cone) != ConeType.PYRAMIDAL:

@@ -4,7 +4,10 @@ Counterpart of ``myosuite_mjx_tpu/engine/smooth.py`` on batch-first
 tensors. Spatial vectors are [angular; linear] in one world-origin frame.
 The kinematic tree runs level by level (bodies grouped by depth); the
 level and joint-slot index tensors are built once per ``DeviceModel``.
-Hinge and slide joints are ported; ``DeviceModel`` rejects other types.
+Every joint type is ported: hinge and slide, ball (a normalized
+quaternion composed into the body's local frame) and free (the body's
+absolute world pose, set in the level pass). Mocap bodies take
+``Data.mocap_pos`` / ``mocap_quat`` as their local pose.
 """
 from __future__ import annotations
 
@@ -96,6 +99,31 @@ class _JointGroup:
   jpos: torch.Tensor      # [G, 3]
   jaxis: torch.Tensor     # [G, 3]
   qpos0: torch.Tensor     # [G]
+  qidx: torch.Tensor | None   # [G, 4] a ball joint's quaternion in qpos
+  rdofs: torch.Tensor     # [G, k] see _dofs
+  tdofs: torch.Tensor | None  # [G, 3] see _dofs
+
+
+@dataclasses.dataclass(frozen=True)
+class _LevelJoints:
+  """The joints of one slot and type whose bodies are at one level."""
+  jtype: int
+  bids: torch.Tensor      # [G]
+  vadr: torch.Tensor      # [G] first dof
+  rdofs: torch.Tensor     # [G, k] see _dofs
+  tdofs: torch.Tensor | None  # [G, 3] see _dofs
+
+
+def _dofs(jtype: int, vadr: np.ndarray):
+  """A joint group's dofs: the rotational ones [G, k] (hinge and slide: its
+  one dof; ball: its 3; free: its last 3) and a free joint's translational
+  ones [G, 3] (None for the other types)."""
+  three = np.arange(3)
+  if jtype == JointType.FREE:
+    return vadr[:, None] + 3 + three, vadr[:, None] + three
+  if jtype == JointType.BALL:
+    return vadr[:, None] + three, None
+  return vadr[:, None], None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +133,9 @@ class _Level:
   parents: torch.Tensor
   keep_ids: torch.Tensor      # bodies whose parent is not the world
   keep_parents: torch.Tensor
-  joints: tuple               # ((jtype, bids, vadr), ...) in slot order
+  joints: tuple               # _LevelJoints in slot order
+  free_bids: torch.Tensor     # free-joint bodies at this level
+  free_rows: torch.Tensor     # their rows in the tree's free-joint list
 
 
 class _TreeSpec:
@@ -128,12 +158,25 @@ class _TreeSpec:
       for jt in np.unique(h.jnt_type[jids]):
         sel = h.jnt_type[jids] == jt
         b, j = has[sel], jids[sel]
-        slot_groups.append((int(jt), b, h.jnt_dofadr[j]))
+        qadr, vadr = h.jnt_qposadr[j], h.jnt_dofadr[j]
+        rdofs, tdofs = _dofs(jt, vadr)
+        slot_groups.append((int(jt), b, vadr))
         self.groups.append(_JointGroup(
-            jtype=int(jt), bids=t(b), jids=t(j), vadr=t(h.jnt_dofadr[j]),
-            qadr=t(h.jnt_qposadr[j]), jpos=m.tensor(h.jnt_pos[j]),
-            jaxis=m.tensor(h.jnt_axis[j]),
-            qpos0=m.tensor(h.qpos0[h.jnt_qposadr[j]])))
+            jtype=int(jt), bids=t(b), jids=t(j), vadr=t(vadr),
+            qadr=t(qadr), jpos=m.tensor(h.jnt_pos[j]),
+            jaxis=m.tensor(h.jnt_axis[j]), qpos0=m.tensor(h.qpos0[qadr]),
+            qidx=(t(qadr[:, None] + np.arange(4)) if jt == JointType.BALL
+                  else None),
+            rdofs=t(rdofs), tdofs=None if tdofs is None else t(tdofs)))
+    free = np.where(h.jnt_type == JointType.FREE)[0]
+    self.free_jids = t(free)
+    self.free_bids = t(h.jnt_bodyid[free])
+    fq = h.jnt_qposadr[free]
+    self.free_pos_idx = t(fq[:, None] + np.arange(3))
+    self.free_quat_idx = t(fq[:, None] + 3 + np.arange(4))
+    self.free_axis = m.tensor(h.jnt_axis[free])
+    self.mocap_bids = t(np.where(h.body_mocapid >= 0)[0])
+    self.mocap_ids = t(h.body_mocapid[h.body_mocapid >= 0])
     self.levels: list[_Level] = []
     for dlv in range(1, int(depth.max()) + 1 if nb > 1 else 1):
       ids = np.where(depth == dlv)[0]
@@ -144,14 +187,22 @@ class _TreeSpec:
       joints = []
       for jt, b, vadr in slot_groups:
         sel = np.isin(b, ids)
-        if sel.any():
-          joints.append((jt, t(b[sel]), t(vadr[sel])))
-      self.levels.append(_Level(t(ids), t(parents), t(ids[keep]),
-                                t(parents[keep]), tuple(joints)))
+        if not sel.any():
+          continue
+        rdofs, tdofs = _dofs(jt, vadr[sel])
+        joints.append(_LevelJoints(jt, t(b[sel]), t(vadr[sel]), t(rdofs),
+                                   None if tdofs is None else t(tdofs)))
+      at_level = np.isin(h.jnt_bodyid[free], ids)
+      self.levels.append(_Level(
+          t(ids), t(parents), t(ids[keep]), t(parents[keep]), tuple(joints),
+          t(h.jnt_bodyid[free][at_level]), t(np.where(at_level)[0])))
     self.jnt_parentbid = t(h.body_parentid[h.jnt_bodyid])
     self.moving_bodies = t(np.arange(1, nb))
-    self.hinge = [g for g in self.groups if g.jtype == JointType.HINGE]
-    self.slide = [g for g in self.groups if g.jtype == JointType.SLIDE]
+    by_type = lambda jt: [g for g in self.groups if g.jtype == jt]
+    self.hinge = by_type(JointType.HINGE)
+    self.slide = by_type(JointType.SLIDE)
+    self.ball = by_type(JointType.BALL)
+    self.free = by_type(JointType.FREE)
     self.ancestor_mask = m.tensor(_ancestor_mask(h))
     self.body_dof_mask = m.tensor(_build_body_dof_mask(h))
 
@@ -193,13 +244,17 @@ def body_dof_mask(m: DeviceModel) -> torch.Tensor:
 
 
 def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True,
-               overlay: dict | None = None):
+               overlay: dict | None = None,
+               mocap_pos: torch.Tensor | None = None,
+               mocap_quat: torch.Tensor | None = None):
   """Body, joint, site and geom world poses for qpos [B, nq].
 
   ``full_data=False`` leaves out ``xmat`` and ``site_xmat``, which nothing
   in a physics step reads (the frame-skip loop asks for them on its last
   substep only). ``overlay["body_pos"]`` [B, nbody, 3] replaces the local
-  body offsets per env.
+  body offsets per env. Mocap bodies take ``mocap_pos`` [B, nmocap, 3] and
+  ``mocap_quat`` [B, nmocap, 4] as their local pose (required when the
+  model has mocap bodies).
   """
   B = qpos.shape[0]
   dtype = qpos.dtype
@@ -210,11 +265,20 @@ def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True,
   else:
     t_loc = m.body_pos.expand(B, nb, 3).clone()
   q_loc = m.body_quat.expand(B, nb, 4).clone()
+  if spec.mocap_bids.numel():
+    if mocap_pos is None or mocap_quat is None:
+      raise ValueError("the model has mocap bodies: pass mocap_pos and "
+                       "mocap_quat")
+    t_loc[:, spec.mocap_bids] = mocap_pos[:, spec.mocap_ids]
+    q_loc[:, spec.mocap_bids] = mocap_quat[:, spec.mocap_ids]
   anchor_rel = qpos.new_zeros((B, max(m.njnt, 1), 3))
   axis_rel = qpos.new_zeros((B, max(m.njnt, 1), 3))
 
-  # fold each body's joints into its local transform, one slot at a time
+  # fold each body's joints into its local transform, one slot at a time;
+  # a free joint's absolute pose is applied in the level pass
   for g in spec.groups:
+    if g.jtype == JointType.FREE:
+      continue
     t = t_loc[:, g.bids]
     q = q_loc[:, g.bids]
     anch = t + qmath.quat_rotate(q, g.jpos)
@@ -225,12 +289,19 @@ def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True,
       ang = qpos[:, g.qadr] - g.qpos0
       qn = qmath.quat_mul(q, qmath.axis_angle_to_quat(g.jaxis, ang))
       tn = anch - qmath.quat_rotate(qn, g.jpos)
-    else:  # SLIDE
+    elif g.jtype == JointType.SLIDE:
       disp = qpos[:, g.qadr] - g.qpos0
       tn = t + axr * disp[..., None]
       qn = q
+    else:  # BALL
+      qn = qmath.quat_mul(q, qmath.normalize(qpos[:, g.qidx]))
+      tn = anch - qmath.quat_rotate(qn, g.jpos)
     t_loc[:, g.bids] = tn
     q_loc[:, g.bids] = qn
+
+  if spec.free_jids.numel():
+    fpos = qpos[:, spec.free_pos_idx]
+    fquat = qmath.normalize(qpos[:, spec.free_quat_idx])
 
   # level-wise composition down the tree
   xpos = qpos.new_zeros((B, nb, 3))
@@ -240,6 +311,9 @@ def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True,
     xpos[:, lv.ids] = xpos[:, lv.parents] + qmath.quat_rotate(
         xqp, t_loc[:, lv.ids])
     xquat[:, lv.ids] = qmath.quat_mul(xqp, q_loc[:, lv.ids])
+    if lv.free_bids.numel():
+      xpos[:, lv.free_bids] = fpos[:, lv.free_rows]
+      xquat[:, lv.free_bids] = fquat[:, lv.free_rows]
   xquat = qmath.normalize(xquat)
 
   if m.njnt:
@@ -247,6 +321,9 @@ def kinematics(m: DeviceModel, qpos: torch.Tensor, full_data: bool = True,
     xanchor = xpos[:, pb] + qmath.quat_rotate(xquat[:, pb],
                                               anchor_rel[:, :m.njnt])
     xaxis = qmath.quat_rotate(xquat[:, pb], axis_rel[:, :m.njnt])
+    if spec.free_jids.numel():
+      xanchor[:, spec.free_jids] = xpos[:, spec.free_bids]
+      xaxis[:, spec.free_jids] = spec.free_axis
   else:
     xanchor = qpos.new_zeros((B, 0, 3))
     xaxis = qpos.new_zeros((B, 0, 3))
@@ -300,6 +377,17 @@ def com_pos(m: DeviceModel, kin: dict, overlay: dict | None = None):
   for g in spec.slide:
     ax = xaxis[:, g.jids]
     cdof[:, g.vadr] = torch.cat([torch.zeros_like(ax), ax], dim=-1)
+  # ball and a free joint's rotations: the body's own axes (the columns of
+  # its xmat, made here from xquat so that full_data=False needs no xmat)
+  # about the anchor; a free joint's translations are the world axes
+  for g in spec.ball + spec.free:
+    w = qmath.quat_to_mat(kin["xquat"][:, g.bids]).transpose(-1, -2)
+    rows = torch.cat([w, _cross(xanchor[:, g.jids, None, :], w)], dim=-1)
+    cdof[:, g.rdofs.reshape(-1)] = rows.reshape(B, -1, 6)
+    if g.tdofs is not None:
+      eye = torch.eye(3, dtype=w.dtype, device=w.device)
+      tr = torch.cat([torch.zeros_like(eye), eye], dim=-1)
+      cdof[:, g.tdofs.reshape(-1)] = tr.repeat(g.tdofs.shape[0], 1)
   return subtree_com, cinert, cdof
 
 
@@ -330,9 +418,22 @@ def com_vel(m: DeviceModel, cdof: torch.Tensor, qvel: torch.Tensor):
   cdof_dot = cdof.new_zeros((B, m.nv, 6))
   for lv in spec.levels:
     cvel[:, lv.ids] = cvel[:, lv.parents]
-    for _, b, vadr in lv.joints:   # hinge and slide: axis fixed in own motion
-      cdof_dot[:, vadr] = motion_cross(cvel[:, b], cdof[:, vadr])
-      cvel.index_add_(1, b, contrib[:, vadr])
+    for j in lv.joints:
+      if j.jtype in (JointType.HINGE, JointType.SLIDE):
+        # the axis is fixed under its own motion: against the velocity
+        # before the joint
+        cdof_dot[:, j.vadr] = motion_cross(cvel[:, j.bids], cdof[:, j.vadr])
+        cvel.index_add_(1, j.bids, contrib[:, j.vadr])
+        continue
+      # ball and free: the rotation axes move with the body, so against
+      # the velocity after the joint (a free joint's translations: zero)
+      vnew = cvel[:, j.bids]
+      if j.tdofs is not None:
+        vnew = vnew + contrib[:, j.tdofs].sum(2)
+      vnew = vnew + contrib[:, j.rdofs].sum(2)
+      cdof_dot[:, j.rdofs.reshape(-1)] = motion_cross(
+          vnew[:, :, None, :], cdof[:, j.rdofs]).reshape(B, -1, 6)
+      cvel[:, j.bids] = vnew
   return cvel, cdof_dot
 
 

@@ -175,6 +175,12 @@ class MyoEnv:
     randomization, ``envs/randomize.py``): field -> [B, ...]."""
     return {}
 
+  def post_reset_aux(self, data: Data, aux: dict, generator) -> dict:
+    """Task state that depends on the freshly reset physics (a target
+    relative to a body's pose, say), after the reset's forward pass.
+    Default: unchanged."""
+    return aux
+
   def get_obs_dict(self, data: Data, aux: dict) -> dict:
     raise NotImplementedError
 
@@ -284,26 +290,51 @@ class MyoEnv:
 
   # ---- core functions ---------------------------------------------------
 
+  def _reset_aux(self, batch: int, device, generator) -> dict:
+    """The task's fresh aux, with the fatigue state under that condition."""
+    aux = self.reset_aux(batch, device, generator)
+    if self.muscle_condition == "fatigue":
+      aux["fatigue"] = (
+          fatigue.random_state(*self.draw_fatigue(batch, device, generator))
+          if self.fatigue_reset_random else
+          fatigue.init_state(batch, len(self._fatigue_idx), self.dtype,
+                             device))
+    return aux
+
+  def _reset_from(self, dm: model_mod.DeviceModel, qpos, qvel, aux: dict,
+                  generator) -> EnvState:
+    """Fresh Data at qpos/qvel with the episode's overlay, the reset's
+    forward pass, then ``post_reset_aux``."""
+    batch = qpos.shape[0]
+    d = data_mod.make_data(dm, batch, self.dtype, dm.device)
+    d = d.replace(qpos=qpos.to(dm.device, self.dtype),
+                  qvel=qvel.to(dm.device, self.dtype),
+                  overlay=self.reset_overlay(batch, dm.device, aux,
+                                             generator))
+    d = forward_mod.forward(dm, d, constraint=self.RESET_CONSTRAINT)
+    aux = self.post_reset_aux(d, aux, generator)
+    return self._mk_state(d, aux, 0, generator)
+
   def reset(self, batch: int, device="cuda",
             generator: torch.Generator | None = None) -> EnvState:
     """Fresh episodes for ``batch`` envs on ``device`` (the card unless the
     caller asks for the CPU)."""
     dm = self.device_model(device)
-    aux = self.reset_aux(batch, dm.device, generator)
-    if self.muscle_condition == "fatigue":
-      aux["fatigue"] = (
-          fatigue.random_state(*self.draw_fatigue(batch, dm.device,
-                                                  generator))
-          if self.fatigue_reset_random else
-          fatigue.init_state(batch, len(self._fatigue_idx), self.dtype,
-                             dm.device))
+    aux = self._reset_aux(batch, dm.device, generator)
     qpos, qvel = self.reset_qpos_qvel(batch, dm.device, aux, generator)
-    d = data_mod.make_data(dm, batch, self.dtype, dm.device)
-    d = d.replace(qpos=qpos.to(self.dtype), qvel=qvel.to(self.dtype),
-                  overlay=self.reset_overlay(batch, dm.device, aux,
-                                             generator))
-    d = forward_mod.forward(dm, d, constraint=self.RESET_CONSTRAINT)
-    return self._mk_state(d, aux, 0, generator)
+    return self._reset_from(dm, qpos, qvel, aux, generator)
+
+  def reset_to(self, qpos: torch.Tensor, qvel: torch.Tensor,
+               generator: torch.Generator | None = None,
+               aux: dict | None = None) -> EnvState:
+    """Restore exact physics states qpos [B, nq], qvel [B, nv] (on their
+    device): a reset with these in place of the task's initial-state
+    draw. Without ``aux`` the task draws a fresh one (and the fatigue
+    state, under that condition), as ``reset`` does."""
+    dm = self.device_model(qpos.device)
+    if aux is None:
+      aux = self._reset_aux(qpos.shape[0], dm.device, generator)
+    return self._reset_from(dm, qpos, qvel, aux, generator)
 
   def step(self, state: EnvState, action: torch.Tensor,
            generator: torch.Generator | None = None) -> EnvState:

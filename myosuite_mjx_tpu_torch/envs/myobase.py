@@ -1,0 +1,83 @@
+"""Task ids on the port's fixture scenes.
+
+Counterpart of ``myosuite_mjx_tpu/envs/myobase.py``. MyoSuite's own ids
+(``myoHandPoseFixed-v0`` and the rest) point into the MyoSuite asset tree,
+which this repository does not hold; they wait for it. Until then the ids
+below run the same task classes on the synthetic hands of
+``assets/fixtures.py``: ``hand23`` (MyoHand's 23 dofs and 39 muscles) and
+``hand11`` (a thumb and an index finger, for the CPU tests).
+
+- ``<hand>PoseFixed-v0``: ``PoseEnv`` with myoHandPoseFixed-v0's task
+  (``pose.HAND_POSE_FIXED``; hand11 takes its first 11 joint targets).
+- ``<hand>ReachFixed-v0`` / ``<hand>ReachRandom-v0``: ``ReachEnv`` on the
+  fixture's fingertip sites (THtip ... LFtip, five on hand23, THtip and
+  IFtip on hand11). MyoHand's target boxes are in its own world frame and
+  do not fit the fixture, so the targets come from the fixture itself:
+  ``TIPS_AT_INIT`` are the tip positions at the init pose (qpos0: no
+  actuator has a joint transmission, so the init pose is qpos0), computed
+  with the port's kinematics in float64 and rounded to 0.01 mm
+  (``tests/test_torch_registry.py`` recomputes them). Fixed: those points
+  (a point box, as MyoHand's Fixed boxes are). Random: a box of +-3 cm in
+  x and +-2 cm in y and z around each (MyoHand's Random boxes span 2-8 cm
+  per axis). ``far_th``: MyoHand's 0.044 (Fixed) and 0.034 (Random) scaled
+  by the fixture's size relative to MyoHand, which is 1: the fixture's
+  phalanges have an adult hand's lengths, as MyoHand's do.
+- Variants: ``<hand>Sarc...`` (sarcopenia) and ``<hand>Fati...`` (fatigue)
+  of every base id, by the reference's rule (``register_env_variant`` with
+  ``muscle_condition``), e.g. ``hand23SarcPoseFixed-v0``. There are no
+  ``Reaf`` (reafferentation) variants: no fixture has the EIP and EPL
+  muscles that condition reroutes.
+"""
+from __future__ import annotations
+
+from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
+from myosuite_mjx_tpu_torch.envs.registry import (asset, register,
+                                                  register_env_variant)
+
+HANDS = {"hand23": ("hand23.npz", ("THtip", "IFtip", "MFtip", "RFtip",
+                                   "LFtip")),
+         "hand11": ("hand11.npz", ("THtip", "IFtip"))}
+# fingertip sites at the init pose (qpos0), the same on both hands
+TIPS_AT_INIT = {
+    "THtip": (0.20386, 0.07308, 0.03228),
+    "IFtip": (0.286, 0.0185, 0.052),
+    "MFtip": (0.292, -0.0012, 0.052),
+    "RFtip": (0.2865, -0.0207, 0.052),
+    "LFtip": (0.273, -0.0398, 0.052),
+}
+RANDOM_HALF_WIDTH = (0.03, 0.02, 0.02)
+
+
+def _box(site: str, half: tuple) -> tuple:
+  c = TIPS_AT_INIT[site]
+  return (tuple(round(x - h, 5) for x, h in zip(c, half)),
+          tuple(round(x + h, 5) for x, h in zip(c, half)))
+
+
+BASE_IDS = []
+for _hand, (_npz, _tips) in HANDS.items():
+  _pose = dict(HAND_POSE_FIXED, model_path=asset(_npz))
+  _pose["target_jnt_value"] = _pose["target_jnt_value"][:3 + 4 * len(_tips)]
+  register(f"{_hand}PoseFixed-v0", PoseEnv, max_episode_steps=100,
+           kwargs=_pose)
+  register(f"{_hand}ReachFixed-v0", ReachEnv, max_episode_steps=100,
+           kwargs=dict(model_path=asset(_npz), normalize_act=True,
+                       target_reach_range={s: _box(s, (0.0, 0.0, 0.0))
+                                           for s in _tips},
+                       far_th=0.044))
+  register(f"{_hand}ReachRandom-v0", ReachEnv, max_episode_steps=100,
+           kwargs=dict(model_path=asset(_npz), normalize_act=True,
+                       target_reach_range={s: _box(s, RANDOM_HALF_WIDTH)
+                                           for s in _tips},
+                       far_th=0.034))
+  BASE_IDS += [f"{_hand}{task}-v0"
+               for task in ("PoseFixed", "ReachFixed", "ReachRandom")]
+
+# muscle-condition variants (the reference's rule)
+for _id in BASE_IDS:
+  _hand, _task = _id[:6], _id[6:]
+  register_env_variant(_id, f"{_hand}Sarc{_task}",
+                       {"muscle_condition": "sarcopenia"})
+  register_env_variant(_id, f"{_hand}Fati{_task}",
+                       {"muscle_condition": "fatigue"})

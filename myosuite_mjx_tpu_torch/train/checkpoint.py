@@ -6,7 +6,8 @@ dicts, lists, tensors, ``nn.Module``s, optimizers and generators) is saved
 as one nested dict of CPU tensors and plain values: a module as its
 ``state_dict``, an optimizer as its per-parameter state, a generator as
 its ``get_state()``. Restoring into a template of the same structure makes
-resume exact.
+resume exact; a tensor that requires grad (SAC's ``log_alpha``) is loaded
+in place, so that the optimizer holding it keeps it.
 """
 from __future__ import annotations
 
@@ -78,6 +79,14 @@ def _restore(template, saved, path: str, params: bool, missing: list,
           f"checkpoint leaf {path}: {getattr(saved, 'dtype', type(saved))} "
           f"{tuple(getattr(saved, 'shape', ()))}, template {template.dtype} "
           f"{tuple(template.shape)}")
+    if template.requires_grad:
+      # a trained leaf outside any module (SAC's log_alpha): an optimizer
+      # holds this very tensor, so load into it in place
+      def load_leaf():
+        with torch.no_grad():
+          template.copy_(saved)
+      pending.append(load_leaf)
+      return template
     return saved.to(template.device)
   if isinstance(template, nn.Module):
     sd = {k: child(v, k, True) for k, v in template.state_dict().items()}

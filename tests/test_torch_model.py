@@ -13,10 +13,10 @@ import sys
 import numpy as np
 import pytest
 
-from torch_parity import HAND_TARGET, NPZ, export_model, jax_model
+from torch_parity import (FIXTURE_NPZ, HAND_TARGET, NPZ, export_model,
+                          fixture_xml, jax_model)
 from myosuite_mjx_tpu.engine import model as jmodel
-from myosuite_mjx_tpu_torch.assets.fixtures import hand_fixture_xml
-from myosuite_mjx_tpu_torch.engine import collision
+from myosuite_mjx_tpu_torch.engine import api, collision
 from myosuite_mjx_tpu_torch.engine import data as tdata
 from myosuite_mjx_tpu_torch.engine import model as tmodel
 from myosuite_mjx_tpu_torch.envs import base, fatigue, randomize
@@ -45,10 +45,10 @@ def _assert_models_equal(a: tmodel.Model, b: tmodel.Model):
       assert x == y, name
 
 
-@pytest.mark.parametrize("digits", [2, 5])
+@pytest.mark.parametrize("digits", [2, 5, "free"])
 def test_checked_in_npz_equals_fresh_export(digits):
-  fresh = export_model(hand_fixture_xml(digits))
-  with np.load(NPZ[digits]) as z:
+  fresh = export_model(fixture_xml(digits))
+  with np.load(FIXTURE_NPZ[digits]) as z:
     assert sorted(z.files) == sorted(fresh)
     for k in z.files:
       np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
@@ -141,7 +141,8 @@ def test_port_sources_import_no_jax_flax_mujoco_or_jax_package():
 @pytest.mark.parametrize("fn", [
     base.MyoEnv.reset, base.BatchedEnv.__init__, base.state_from_numpy,
     tmodel.DeviceModel.__init__, tdata.make_data, tdata.data_from_numpy,
-    sac.SAC.__init__, randomize.sample_overlay, fatigue.init_state],
+    sac.SAC.__init__, randomize.sample_overlay, fatigue.init_state,
+    api.Physics.__init__, api.load],
                          ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
   assert inspect.signature(fn).parameters["device"].default == "cuda"

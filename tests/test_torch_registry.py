@@ -1,0 +1,157 @@
+"""The task registry: its mechanics against the JAX package's
+``envs/registry.py``, and every registered id of the port.
+
+The JAX registry module reads no asset; it is imported inside
+``torch_parity.bare_envs_package()`` (the JAX ``envs`` package registers
+asset-backed ids on import), so it starts empty there.
+"""
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import bare_envs_package
+from myosuite_mjx_tpu_torch import envs
+from myosuite_mjx_tpu_torch.envs import myobase, registry
+from myosuite_mjx_tpu_torch.envs.pose import PoseEnv
+from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
+
+BASE = {"model_path": "x.npz", "frame_skip": 10,
+        "target_reach_range": {"THtip": ((0, 0, 0), (1, 1, 1)),
+                               "IFtip": ((0, 0, 0), (1, 1, 1))},
+        "weighted_reward_keys": {"reach": 1.0, "bonus": 4.0},
+        "obs_keys": ["qpos", "qvel"]}
+OVERLAYS = [
+    {"muscle_condition": "sarcopenia"},
+    {"weighted_reward_keys": {"bonus": 0.0, "penalty": 50}},
+    {"target_reach_range": {"IFtip": ((1, 1, 1), (2, 2, 2))},
+     "obs_keys": ["qpos"]},
+    {"frame_skip": {"nested": 1}, "weighted_reward_keys": 3},
+]
+
+
+@pytest.fixture
+def jax_registry():
+  with bare_envs_package():
+    from myosuite_mjx_tpu.envs import registry as jreg
+    yield jreg
+
+
+class _Task:
+  """A stand-in env class that records its kwargs."""
+
+  def __init__(self, **kwargs):
+    self.kwargs = kwargs
+
+
+@pytest.mark.parametrize("overlay", OVERLAYS, ids=range(len(OVERLAYS)))
+def test_deep_update_matches_jax(jax_registry, overlay):
+  base = copy.deepcopy(BASE)
+  out = registry.deep_update(base, overlay)
+  assert out == jax_registry.deep_update(BASE, overlay)
+  assert base == BASE, "deep_update must not touch its input"
+  # no aliasing into the overlay either
+  if "target_reach_range" in overlay:
+    assert out["target_reach_range"] is not overlay["target_reach_range"]
+
+
+def test_register_env_variant_matches_jax(jax_registry, monkeypatch):
+  monkeypatch.setattr(registry, "_REGISTRY", {})
+  monkeypatch.setattr(jax_registry, "_REGISTRY", {})
+  for reg in (registry, jax_registry):
+    reg.register("taskA-v0", _Task, dict(BASE), max_episode_steps=75)
+    reg.register("taskB-v0", _Task, dict(BASE, horizon=20))
+    for i, ov in enumerate(OVERLAYS):
+      assert reg.register_env_variant("taskA-v0", f"taskA{i}-v0",
+                                      ov) == f"taskA{i}-v0"
+  assert registry.registry_ids() == jax_registry.registry_ids()
+  for env_id in registry.registry_ids():
+    assert registry._REGISTRY[env_id] == jax_registry._REGISTRY[env_id]
+  assert registry._REGISTRY["taskA-v0"][1]["horizon"] == 75
+  assert registry._REGISTRY["taskB-v0"][1]["horizon"] == 20
+
+
+def test_duplicate_ids_raise(monkeypatch):
+  n = len(registry.registry_ids())
+  with pytest.raises(ValueError, match="duplicate"):
+    registry.register("hand11PoseFixed-v0", PoseEnv, {})
+  with pytest.raises(ValueError, match="duplicate"):
+    registry.register_env_variant("hand11PoseFixed-v0",
+                                  "hand11SarcPoseFixed-v0", {})
+  assert len(registry.registry_ids()) == n
+  monkeypatch.setattr(registry, "_REGISTRY", {})
+  registry.register("taskA-v0", _Task, {})
+  with pytest.raises(ValueError, match="duplicate"):
+    registry.register("taskA-v0", _Task, {"frame_skip": 5})
+  assert registry._REGISTRY["taskA-v0"] == (_Task, {"horizon": 100})
+
+
+def test_make_caches_and_overrides(monkeypatch):
+  monkeypatch.setattr(registry, "_REGISTRY", {})
+  monkeypatch.setattr(registry, "_env_cache", {})
+  registry.register("taskA-v0", _Task, dict(BASE))
+  a = registry.make("taskA-v0")
+  assert registry.make("taskA-v0") is a
+  assert registry.make("taskA-v0", cache=False) is not a
+  b = registry.make("taskA-v0", frame_skip=5,
+                    target_reach_range={"IFtip": ((2, 2, 2), (3, 3, 3))})
+  assert b is not a and registry.make("taskA-v0") is a
+  assert b.kwargs["frame_skip"] == 5 and a.kwargs["frame_skip"] == 10
+  assert b.kwargs["target_reach_range"] == {
+      "THtip": ((0, 0, 0), (1, 1, 1)), "IFtip": ((2, 2, 2), (3, 3, 3))}
+  assert a.kwargs["horizon"] == 100
+  with pytest.raises(KeyError):
+    registry.make("nosuch-v0")
+
+
+def test_the_registered_ids():
+  ids = envs.registry_ids()
+  bases = [f"{h}{t}-v0" for h in ("hand11", "hand23")
+           for t in ("PoseFixed", "ReachFixed", "ReachRandom")]
+  want = {f"{b[:6]}{c}{b[6:]}" for b in bases for c in ("", "Sarc", "Fati")}
+  assert set(ids) == want and len(ids) == 18
+  assert not [i for i in ids if "Reaf" in i]
+  assert registry.asset("hand23.npz").endswith(
+      "myosuite_mjx_tpu_torch/assets/hand23.npz")
+  for i in ids:
+    cls, kw = registry._REGISTRY[i]
+    assert cls is (PoseEnv if "Pose" in i else ReachEnv), i
+    assert kw["muscle_condition" if ("Sarc" in i or "Fati" in i)
+              else "horizon"] in ("sarcopenia", "fatigue", 100), i
+  for name in ("make", "register", "register_env_variant", "registry_ids",
+               "MyoEnv", "BatchedEnv", "EnvState"):
+    assert hasattr(envs, name), name
+
+
+def test_reach_targets_and_thresholds():
+  _, kw = registry._REGISTRY["hand23ReachFixed-v0"]
+  _, kr = registry._REGISTRY["hand23ReachRandom-v0"]
+  assert (kw["far_th"], kr["far_th"]) == (0.044, 0.034)
+  for s, (lo, hi) in kw["target_reach_range"].items():
+    assert lo == hi == tuple(myobase.TIPS_AT_INIT[s])
+    rlo, rhi = kr["target_reach_range"][s]
+    np.testing.assert_allclose(np.subtract(rhi, rlo),
+                               2 * np.asarray(myobase.RANDOM_HALF_WIDTH),
+                               atol=1e-12)
+    np.testing.assert_allclose(np.add(rhi, rlo) / 2, lo, atol=1e-12)
+
+
+@pytest.mark.parametrize("env_id", [i for i in sorted(
+    registry._REGISTRY) if i.startswith(("hand11", "hand23"))])
+def test_every_id_constructs_and_hand11_ids_step(env_id):
+  env = envs.make(env_id, cache=False, dtype=torch.float64)
+  assert env.horizon == 100
+  if env_id.startswith("hand23"):
+    assert env.model.nv == 23
+    return
+  g = torch.Generator().manual_seed(0)
+  st = env.reset(2, "cpu", g)
+  for _ in range(2):
+    st = env.autoreset_step(st, torch.full((2, env.action_dim), 0.5,
+                                           dtype=torch.float64), g)
+  assert st.obs.shape[0] == 2 and bool(torch.isfinite(st.obs).all())
+  if "Fati" in env_id:
+    assert "fatigue" in st.aux

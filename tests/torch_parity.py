@@ -36,7 +36,8 @@ torch.set_num_threads(1)
 
 from myosuite_mjx_tpu.engine import data as jdata  # noqa: E402
 from myosuite_mjx_tpu.engine import model as jmodel  # noqa: E402
-from myosuite_mjx_tpu_torch.assets.fixtures import hand_fixture_xml  # noqa: E402
+from myosuite_mjx_tpu_torch.assets.fixtures import (  # noqa: E402
+    free_fixture_xml, hand_fixture_xml)
 from myosuite_mjx_tpu_torch.engine import data as tdata  # noqa: E402
 from myosuite_mjx_tpu_torch.engine import model as tmodel  # noqa: E402
 from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED  # noqa: E402
@@ -44,6 +45,15 @@ from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED  # noqa: E402
 ASSETS = os.path.join(os.path.dirname(tmodel.__file__), os.pardir, "assets")
 NPZ = {2: os.path.join(ASSETS, "hand11.npz"), 5: os.path.join(ASSETS,
                                                               "hand23.npz")}
+# the ball/free/mocap scene
+FREE_NPZ = os.path.join(ASSETS, "free10.npz")
+# every checked-in fixture: the hands by digit count, and "free"
+FIXTURE_NPZ = {**NPZ, "free": FREE_NPZ}
+
+
+def fixture_xml(key) -> str:
+  """The MJCF text of a ``FIXTURE_NPZ`` key."""
+  return free_fixture_xml() if key == "free" else hand_fixture_xml(key)
 
 # myoHandPoseFixed-v0's target joint values (MyoHand joint order)
 HAND_TARGET = HAND_POSE_FIXED["target_jnt_value"]
@@ -182,14 +192,15 @@ def jax_pose_env():
 def main(argv=None) -> None:
   ap = argparse.ArgumentParser(description="Write the port's fixture models.")
   ap.add_argument("--export", action="store_true",
-                  help="compile hand11 and hand23 and write their .npz files")
+                  help="compile hand11, hand23 and free10 and write their "
+                       ".npz files")
   ap.add_argument("--out-dir", default=os.path.normpath(ASSETS))
   args = ap.parse_args(argv)
   if not args.export:
     ap.error("nothing to do: pass --export")
-  for digits, fixture in NPZ.items():
+  for key, fixture in FIXTURE_NPZ.items():
     path = os.path.join(args.out_dir, os.path.basename(fixture))
-    np.savez_compressed(path, **export_model(hand_fixture_xml(digits)))
+    np.savez_compressed(path, **export_model(fixture_xml(key)))
     print(path)
 
 

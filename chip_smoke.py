@@ -29,8 +29,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5. card against CPU: 5 control steps of the same 16 envs on the card
    (float32, kernel) and on the CPU (float64, plain version);
 6. train: ``NPG.train`` on hand23 at the zoo run's width (512 trajectories
-   x horizon 100, ``NPGConfig`` defaults otherwise), two iterations with a
-   32-env eval after the second and a ``MetricsWriter``; then one ``PPO``
+   x horizon 100, ``NPGConfig`` defaults otherwise), one iteration with a
+   32-env eval after it and a ``MetricsWriter``; then one ``PPO``
    iteration at ``PPOConfig`` defaults (128 envs x 50 steps, 32 minibatches,
    8 epochs). Prints env-steps/s and physics-steps/s per iteration, the
    seconds of rollout, GAE, natural-gradient step and value fit (CUDA syncs
@@ -65,7 +65,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    card (float32) and on the CPU (float64 and float32) with the same draws
    (see ``FLOAT32_MARGIN`` for the bounds); then the nominal, overlay and
    obs_noise envs at B = 4096 in turns (nominal, overlay, obs_noise,
-   obs_noise, overlay, nominal), 14 control steps each with staggered
+   obs_noise, overlay, nominal), 8 control steps each with staggered
    episode clocks, physics-steps/s beside phase 4's; fails if an env that
    did not reset lost its overlay or one that did kept it.
 
@@ -92,19 +92,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the CPU (float64; the CPU float32 figure printed beside the bound),
    then B = 4096 for 400 substeps, timed after the first 10; prints
    physics-steps/s and the active contacts; fails unless the free bodies
-   come to rest on their contacts.
+   come to rest on their contacts;
+13. contact geometry and the hand-object tasks: (a) every ported pair type
+   (the plane, sphere, capsule, ellipsoid, cylinder and box pairs and the
+   convex MPR path) at B = 4096 on seeded poses and sizes, separated,
+   shallow, deep and with coincident centres, the card's float32 against
+   the port's float64 on the CPU (median lane within ``PAIR_MEDIAN_BOUND``,
+   branch flips no more often than in float32 on the CPU, see
+   ``PAIR_FLIP``); (b) the ``prims36`` fixture (free bodies of every
+   primitive type, all 20 pair types) through ``Physics``: 16 envs for 50
+   substeps against the CPU, then B = 4096 for 120 substeps, failing unless
+   the bodies rest and none is below the plane; (c) ``hand23KeyTurnRandom``,
+   ``ObjHoldRandom``, ``PenTwirlRandom`` and ``DieReorientP1`` through
+   ``envs.make``: 16 envs for 5 control steps against the CPU with the same
+   draws (phase 9's bounds), then B = 4096 for 20 control steps with every
+   episode clock crossing its horizon, printing physics-steps/s, SPD
+   launches, active contacts, the share of envs whose object touches the
+   hand and the contacts the top-k cull dropped, failing on a non-finite
+   output, an object below the plane, no hand-object contact, or an env
+   that did not autoreset; (d) ``train.cli`` SAC on
+   ``hand23ObjHoldRandom-v0`` at the proof recipe's width for 6
+   iterations, failing unless the metrics are finite and the nets move.
 
-Every [B, n] at which phases 4-12 launch the kernel must be among those
-phase 3 checked.
+Every [B, n] at which phases 4-13 launch the kernel must be among those
+phase 3 checked. Phase 13's CPU runs at B = 16 are computed in one worker
+process (``cpu_references``), started after phase 2 and joined at the
+end, while the card runs phases 3-12.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
+import concurrent.futures
 import contextlib
 import copy
 import functools
 import io
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -125,9 +149,10 @@ WARMUP = 2
 HAND23 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "hand23.npz")
 FREE10 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "free10.npz")
 # the kernel is built for these padded sizes: cover each and its ends, and
-# n = 1; 10 is free10's nv (phase 12)
+# n = 1; 10 is free10's nv (phase 12), 24 and 29 the hand-object scenes'
+# and 36 prims36's (phase 13)
 PADDED_SIZES = (8, 16, 24, 32, 64)
-SIZES = (1, 4, 8, 10, 11, 16, 17, 23, 24, 32, 33, 64)
+SIZES = (1, 4, 8, 10, 11, 16, 17, 23, 24, 29, 32, 33, 36, 64)
 # the batches the paths launch the kernel at: the card side of phases 5 and
 # 7, the NPG eval, the PPO rollout, the NPG rollout and the main path
 PATH_BATCHES = (16, 32, 128, 512, B_MAIN)
@@ -145,9 +170,10 @@ BACKWARD_BOUND = 1e-5
 # 8.4e-4 (qvel, of 6.8 peak) and 1.3e-7 (act); the bounds leave 25-80x.
 CARD_CPU_BOUND = {"qpos": 1e-4, "qvel": 7e-2, "act": 1e-5}
 # phase 6: the zoo NPG run's width (train_artifacts/myoHandPoseFixed_npg:
-# 51,200 env steps per iteration), two iterations
+# 51,200 env steps per iteration), one iteration (two until phase 13 came
+# and the command neared the time limit on a slow host)
 NPG_ENVS = 512
-NPG_ITERS = 2
+NPG_ITERS = 1
 TRAIN_SEED = 0
 # the realized mean KL of a natural-gradient step within this share of
 # step_size (the PR 3 prediction; measured 0.0987 to 0.0996 for 0.1)
@@ -207,7 +233,7 @@ OVERLAY_SPEC = dict(body_mass=(0.8, 1.2), body_pos=(-0.002, 0.002),
                     dof_damping=(0.5, 2.0), actuator_gain=(0.8, 1.2))
 PHASE9_ORDER = ("nominal", "overlay", "obs_noise", "obs_noise", "overlay",
                 "nominal")
-PHASE9_STEPS = 14
+PHASE9_STEPS = 8
 FLOAT32_MARGIN = 20
 # phase 10: the CLI on this task; SAC at the proof recipe's width, run
 # straight for CLI_SAC_ITERS iterations and in two legs split at
@@ -227,6 +253,48 @@ FREE_CPU_BOUND = {"qpos": 1e-4, "qvel": 2e-2}
 FREE_WINDOW = 400
 FREE_REST = 0.05
 BAR_POS = (0.0, 0.0, 0.015)
+# phase 13: contact geometry and the hand-object tasks.
+# 13a: every ported pair type at B_MAIN on seeded poses and sizes (a
+# quarter each separated, shallow, deep and with coincident centres), the
+# card's float32 against the port's float64 on the CPU, with the CPU's
+# float32 beside it. Where the answer turns on a comparison of nearly equal
+# values (the normal of a zero offset, the nearest face of a deep point, a
+# box face or a cylinder rim, MPR's portal choices), float32 can take
+# another branch than float64: up to 24% of the lanes on the CPU (a lane
+# "flips" when dist, pos or normal is off by more than PAIR_FLIP). The
+# phase holds the card's median lane within PAIR_MEDIAN_BOUND (CPU float32
+# medians over the 20 types: at most 8.1e-9 dist, 4.7e-8 pos, 3.9e-6
+# normal; the bounds leave 20x and more) and its share of flipped lanes
+# within PAIR_FLIP_SLACK of the CPU float32's
+PAIR_FLIP = {"dist": 1e-5, "pos": 1e-4, "normal": 1e-3}
+PAIR_MEDIAN_BOUND = {"dist": 2e-7, "pos": 1e-6, "normal": 1e-4}
+PAIR_FLIP_SLACK = 0.02
+# 13b: prims36 (every pair type in dynamics) at B = 16 for PRIMS_STEPS
+# substeps, card float32 against CPU float64 within free10's
+# FREE_CPU_BOUND (CPU float32 against float64 gave 5.5e-7 qpos and 1.4e-5
+# qvel, the card 5.5e-7 and 1.5e-5); then B_MAIN envs for PRIMS_WINDOW
+# substeps: by then every
+# body rests (CPU float32, 32 envs: each body's median speed at most 0.009
+# after 150 substeps, in m/s or rad/s) and none is below the plane
+PRIMS36 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets",
+                       "prims36.npz")
+PRIMS_STEPS = 50
+PRIMS_WINDOW = 120
+PRIMS_REST = 0.05
+# 13c: each task at B = 16 for 5 control steps on the card and the CPU
+# with the same draws (phase 9's bounds), then B_MAIN envs for MANIP_STEPS
+# control steps, timed after WARMUP, every episode clock set to cross its
+# horizon inside the window
+MANIP_TASKS = ("hand23KeyTurnRandom-v0", "hand23ObjHoldRandom-v0",
+               "hand23PenTwirlRandom-v0", "hand23DieReorientP1-v0")
+MANIP_OBJECT = {"hand23KeyTurnRandom-v0": "key",
+                "hand23ObjHoldRandom-v0": "object",
+                "hand23PenTwirlRandom-v0": "Object",
+                "hand23DieReorientP1-v0": "die"}
+MANIP_STEPS = 20
+# 13d: the CLI's SAC at the proof recipe's width on the hold task
+MANIP_TRAIN_ENV = "hand23ObjHoldRandom-v0"
+MANIP_SAC_ITERS = 6
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1393,6 +1461,405 @@ def phase_physics() -> dict:
           "physics_steps_per_s": rate}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: contact geometry and the hand-object tasks
+# ---------------------------------------------------------------------------
+
+
+def _rotations(rng, n: int) -> np.ndarray:
+  q = rng.normal(size=(n, 4))
+  q /= np.linalg.norm(q, axis=-1, keepdims=True)
+  w, x, y, z = q.T
+  return np.stack([
+      np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                2 * (x * z + w * y)], -1),
+      np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                2 * (y * z - w * x)], -1),
+      np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                1 - 2 * (x * x + y * y)], -1)], -2)
+
+
+def _pair_cases(t1: int, t2: int, n: int, seed: int = 0):
+  """(p1, m1, s1, p2, m2, s2) as float64 numpy [n, ...]: a quarter each
+  separated, shallow, deep and with coincident centres. geom2 sits along a
+  random direction from geom1 (along a plane's normal) at a share of the
+  summed support extents (of geom2's alone for a plane)."""
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  rng = np.random.default_rng(seed)
+
+  def sizes(t, k):
+    s = rng.uniform(0.01, 0.04, (k, 3))
+    if t == T.SPHERE:
+      s[:, 1:] = 0.0
+    if t in (T.CAPSULE, T.CYLINDER):
+      s[:, 2] = 0.0
+    return s
+
+  def extent(t, s, mat, u):
+    d = np.einsum("nji,nj->ni", mat, u)
+    if t == T.SPHERE:
+      return s[:, 0]
+    if t == T.CAPSULE:
+      return s[:, 0] + s[:, 1] * np.abs(d[:, 2])
+    if t == T.ELLIPSOID:
+      return np.linalg.norm(s * d, axis=-1)
+    if t == T.CYLINDER:
+      return (s[:, 0] * np.linalg.norm(d[:, :2], axis=-1)
+              + s[:, 1] * np.abs(d[:, 2]))
+    return (s * np.abs(d)).sum(-1)
+
+  out, k = [], n // 4
+  for share, plane_share in ((1.4, 1.4), (0.93, 0.93), (0.5, 0.3),
+                             (0.0, -0.4)):
+    m1, m2 = _rotations(rng, k), _rotations(rng, k)
+    s1, s2 = sizes(t1, k), sizes(t2, k)
+    p1 = rng.uniform(-0.05, 0.05, (k, 3))
+    if t1 == T.PLANE:
+      u = m1[:, :, 2]
+      off = plane_share * extent(t2, s2, m2, -u)
+    else:
+      u = rng.normal(size=(k, 3))
+      u /= np.linalg.norm(u, axis=-1, keepdims=True)
+      off = share * (extent(t1, s1, m1, u) + extent(t2, s2, m2, -u))
+    out.append((p1, m1, s1, p1 + off[:, None] * u, m2, s2))
+  return tuple(np.concatenate(x) for x in zip(*out))
+
+
+def _narrow(types, cases, device, dtype):
+  from myosuite_mjx_tpu_torch.engine import collision
+  args = [torch.as_tensor(a, dtype=dtype, device=device) for a in cases]
+  dist, pos, n = collision._narrow_fn(*types)(*args)
+  return [x.double().cpu().numpy()
+          for x in (dist, pos, n.expand(pos.shape))]
+
+
+def phase_pairs() -> dict:
+  """13a: every ported pair type at B_MAIN, card float32 against CPU
+  float64 (see PAIR_FLIP)."""
+  from myosuite_mjx_tpu_torch.engine import collision
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  keys = tuple(PAIR_FLIP)
+  worst = {k: 0.0 for k in keys}
+  for types in sorted(collision.PORTED):
+    cases = _pair_cases(*types, B_MAIN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = _narrow(types, cases, DEVICE, torch.float32)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = _narrow(types, cases, "cpu", torch.float64)
+    cpu32 = _narrow(types, cases, "cpu", torch.float32)
+
+    def lane_errs(out):
+      return {k: np.abs((a - b).reshape(B_MAIN, -1)).max(-1)
+              for k, a, b in zip(keys, out, ref)}
+
+    def flipped(e):
+      return float(np.any([e[k] > PAIR_FLIP[k] for k in keys], 0).mean())
+
+    e, e32 = lane_errs(card), lane_errs(cpu32)
+    med = {k: float(np.median(e[k])) for k in keys}
+    flips, flips32 = flipped(e), flipped(e32)
+    finite = all(np.isfinite(x).all() for x in card)
+    good = (finite and flips <= flips32 + PAIR_FLIP_SLACK
+            and all(med[k] <= PAIR_MEDIAN_BOUND[k] for k in keys))
+    name = f"{T(types[0]).name}-{T(types[1]).name}"
+    _say(f"pairs {name} B={B_MAIN} x {card[0].shape[-1]} points, card "
+         f"float32 vs cpu float64: median lane " + ", ".join(
+             f"{k} {med[k]:.2e}" for k in keys)
+         + "; max " + ", ".join(f"{k} {float(e[k].max()):.2e}" for k in keys)
+         + f"; flipped lanes {flips:.4f} (cpu float32 {flips32:.4f}); "
+         f"touching lanes {int((ref[0].min(-1) < 0).sum())}; {ms:.1f} ms "
+         f"{'ok' if good else 'FAIL'}")
+    if not good:
+      raise AssertionError(f"pair {name}: card and CPU disagree, or "
+                           f"non-finite")
+    worst = {k: max(worst[k], med[k]) for k in keys}
+  _say(f"pairs: worst median lane over the {len(collision.PORTED)} types "
+       + ", ".join(f"{k} {v:.2e} (bound {PAIR_MEDIAN_BOUND[k]:g})"
+                   for k, v in worst.items()))
+  return {}
+
+
+def _prims_start(phys, batch: int):
+  """``batch`` prims36 envs: each body's start moved by up to 5 mm, small
+  random velocities (0.02 m/s or rad/s)."""
+  rng = np.random.default_rng(0)
+  d = phys.make_data(batch)
+  qpos = d.qpos.double().cpu().numpy()
+  for b in range(phys.model.nq // 7):
+    qpos[:, 7 * b:7 * b + 3] += rng.uniform(-0.005, 0.005, (batch, 3))
+  qvel = rng.normal(scale=0.02, size=(batch, phys.model.nv))
+  t = lambda x: torch.as_tensor(x, dtype=phys.dtype, device=phys.device)
+  return d.replace(qpos=t(qpos), qvel=t(qvel))
+
+
+def _prims_b16(device, dtype) -> dict:
+  """prims36's 16 envs after PRIMS_STEPS substeps: qpos and qvel."""
+  from myosuite_mjx_tpu_torch.engine import api
+  phys = api.load(PRIMS36, dtype, device)
+  d = _prims_start(phys, 16)
+  for _ in range(PRIMS_STEPS):
+    d = phys.step(d)
+  return {f: getattr(d, f).double().cpu().numpy() for f in FREE_CPU_BOUND}
+
+
+def _task_b16(task_id: str, device, dtype) -> dict:
+  """16 envs of a task after 5 autoreset steps (one CPU generator, so the
+  card and the CPU draw the same): qpos, qvel and act."""
+  B = 16
+  env = _task_env(task_id, dtype)
+  actions = np.random.default_rng(0).uniform(0.0, 1.0,
+                                             (5, B, env.action_dim))
+  g = torch.Generator().manual_seed(0)
+  st = env.reset(B, device, g)
+  for a in actions:
+    st = env.autoreset_step(
+        st, torch.as_tensor(a, dtype=dtype, device=device), g)
+  return {f: getattr(st.data, f).double().cpu().numpy()
+          for f in CARD_CPU_BOUND}
+
+
+def cpu_references() -> dict:
+  """Phase 13's CPU side (13b's float64 run, 13c's float64 and float32
+  runs). ``main`` computes it in a worker process while the card runs
+  the earlier phases."""
+  torch.set_num_threads(2)
+  out = {"prims": _prims_b16("cpu", torch.float64)}
+  for task_id in MANIP_TASKS:
+    for dtype in (torch.float64, torch.float32):
+      out[task_id, dtype] = _task_b16(task_id, "cpu", dtype)
+  return out
+
+
+def phase_prims(refs: dict | None = None) -> dict:
+  """13b: every pair type in dynamics through ``Physics`` on prims36;
+  ``refs`` is ``cpu_references()`` (computed here without it)."""
+  from myosuite_mjx_tpu_torch.engine import api, collision
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  card = _prims_b16(DEVICE, torch.float32)
+  ref = refs["prims"] if refs else _prims_b16("cpu", torch.float64)
+  for f, bound in FREE_CPU_BOUND.items():
+    err = np.abs(card[f] - ref[f]).max(-1)
+    worst, median = float(err.max()), float(np.median(err))
+    ok = worst <= bound
+    _say(f"prims36 B=16, {PRIMS_STEPS} substeps, card float32 vs cpu "
+         f"float64, {f}: max abs err worst env {worst:.3e}, median env "
+         f"{median:.3e} (bound {bound:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"prims36: card and CPU disagree on {f}")
+
+  phys = api.load(PRIMS36, torch.float32, DEVICE)
+  m = phys.model
+  d = _prims_start(phys, B_MAIN)
+  advance = phys.step_n(10)
+  d = advance(d)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(PRIMS_WINDOW // 10 - 1):
+    d = advance(d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  rate = (PRIMS_WINDOW - 10) * B_MAIN / seconds
+  nbody = m.nq // 7
+  speed = d.qvel.reshape(B_MAIN, nbody, 6).abs().amax(-1)
+  height = d.qpos.reshape(B_MAIN, nbody, 7)[..., 2]
+  active = (d.contact.dist < 0).sum(-1)
+  types = sorted({(int(m.geom_type[p.g1]), int(m.geom_type[p.g2]))
+                  for p in collision.candidate_pairs(m)})
+  median = float(speed.amax(-1).median())
+  lowest = float(height.min())
+  _say(f"prims36 B={B_MAIN}: {len(types)} pair types, {PRIMS_WINDOW} "
+       f"substeps, {PRIMS_WINDOW - 10} timed in {seconds:.3f} s: {rate:.1f}"
+       f" physics-steps/s ({seconds / (PRIMS_WINDOW - 10) * 1e3:.1f} ms per "
+       f"substep); active contacts per env {float(active.float().mean()):.3f}"
+       f", dropped {float(d.ncon_dropped.float().mean()):.3f} per env (max "
+       f"{int(d.ncon_dropped.max())}); fastest body per env, median "
+       f"{median:.4f} (bound {PRIMS_REST}); lowest body centre {lowest:.4f};"
+       f" spd_solve launches {cuda_linalg.spd_solve_cuda.launches}")
+  for name, x in (("qpos", d.qpos), ("qvel", d.qvel)):
+    if not bool(torch.isfinite(x).all()):
+      raise AssertionError(f"prims36: non-finite {name} at B={B_MAIN}")
+  if len(types) != 20:
+    raise AssertionError(f"prims36 runs {len(types)} pair types, not 20")
+  if not (median <= PRIMS_REST and lowest > 0.0):
+    raise AssertionError("prims36: the bodies did not come to rest, or one "
+                         "fell through the plane")
+  if cuda_linalg.spd_solve_cuda.launches <= 0:
+    raise AssertionError("phase 13b never launched the SPD kernel")
+  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+
+
+def _object_geoms(env, task_id: str):
+  """The task object's geoms, the hand's geoms (neither the object's nor
+  the world's) as [ngeom] masks on the card, and the object's body."""
+  m = env.model
+  body = m.name2id("body", MANIP_OBJECT[task_id])
+  gb = np.asarray(m.geom_bodyid)
+  obj = torch.as_tensor(gb == body, device=DEVICE)
+  hand = torch.as_tensor((gb != body) & (gb != 0), device=DEVICE)
+  return obj, hand, body
+
+
+def _task_env(task_id: str, dtype=torch.float32):
+  from myosuite_mjx_tpu_torch import envs
+  return envs.make(task_id, cache=False, dtype=dtype)
+
+
+def phase_manip(phase4_rate: float, refs: dict | None = None) -> dict:
+  """13c: the hand-object tasks through ``envs.make``; ``refs`` is
+  ``cpu_references()`` (computed here without it)."""
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  total = 0
+  for task_id in MANIP_TASKS:
+    card = _task_b16(task_id, DEVICE, torch.float32)
+    if refs:
+      ref, cpu32 = refs[task_id, torch.float64], refs[task_id, torch.float32]
+    else:
+      ref = _task_b16(task_id, "cpu", torch.float64)
+      cpu32 = _task_b16(task_id, "cpu", torch.float32)
+    for f, bound in CARD_CPU_BOUND.items():
+      err = np.abs(card[f] - ref[f]).max(-1)
+      err32 = float(np.abs(cpu32[f] - ref[f]).max())
+      worst_bound = max(bound, FLOAT32_MARGIN * err32)
+      worst, median = float(err.max()), float(np.median(err))
+      ok = worst <= worst_bound and median <= bound
+      _say(f"manip {task_id} B=16: card float32 vs cpu float64 after 5 "
+           f"steps, {f}: max abs err worst env {worst:.3e} (bound "
+           f"{worst_bound:.3g}; cpu float32 {err32:.3e}), median env "
+           f"{median:.3e} (bound {bound:g}) {'ok' if ok else 'FAIL'}")
+      if not ok:
+        raise AssertionError(f"{task_id}: card and CPU disagree on {f}")
+
+    env = _task_env(task_id)
+    obj, hand, body = _object_geoms(env, task_id)
+    benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    cuda_linalg.spd_solve_cuda.launches = 0
+    st = benv.init()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    # every clock crosses the horizon once inside the window
+    st = st.replace(steps=env.horizon - torch.randint(
+        1, MANIP_STEPS + 1, (B_MAIN,), generator=g, device=DEVICE,
+        dtype=torch.int32))
+    restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    touched = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    lowest = torch.full((), np.inf, device=DEVICE)
+    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    t0 = None
+    for i in range(MANIP_STEPS):
+      if i == WARMUP:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      action = torch.rand((B_MAIN, env.action_dim), generator=g,
+                          device=DEVICE)
+      st = benv.step(st, action)
+      restarted |= st.info["terminated"] | st.info["truncated"]
+      c = st.data.contact
+      on = c.dist < 0
+      g1, g2 = c.geom1.long(), c.geom2.long()
+      pair = (obj[g1] & hand[g2]) | (hand[g1] & obj[g2])
+      touched |= (on & pair).any(-1)
+      lowest = torch.minimum(lowest, st.data.xpos[:, body, 2].min())
+      dropped += st.data.ncon_dropped.sum()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    timed = MANIP_STEPS - WARMUP
+    rate = timed * B_MAIN * env.frame_skip / seconds
+    launches = cuda_linalg.spd_solve_cuda.launches
+    total += launches
+    c = st.data.contact
+    active = (c.dist < 0).sum(-1).float()
+    n_touch = int(((c.dist < 0) & ((obj[c.geom1.long()] & hand[c.geom2.long()])
+                                   | (hand[c.geom1.long()]
+                                      & obj[c.geom2.long()]))).any(-1).sum())
+    lowest = float(lowest)
+    _say(f"manip {task_id} B={B_MAIN} (nv {env.model.nv}, frame_skip "
+         f"{env.frame_skip}, horizon {env.horizon}): {MANIP_STEPS} control "
+         f"steps, {timed} timed in {seconds:.3f} s: {rate:.1f} "
+         f"physics-steps/s (phase 4 of this call {phase4_rate:.1f}), "
+         f"{seconds / timed * 1e3:.1f} ms per control step; spd_solve "
+         f"launches {launches}; active contacts per env at the end "
+         f"{float(active.mean()):.3f}; envs whose object touches the hand: "
+         f"{n_touch / B_MAIN:.4f} at the end, {float(touched.float().mean()):.4f}"
+         f" at some step; dropped {int(dropped)} in all "
+         f"({int(dropped) / (MANIP_STEPS * B_MAIN):.4f} per env and step), "
+         f"{int(st.data.ncon_dropped.max())} at most in an env at the end; "
+         f"lowest object centre {lowest:.4f}; autoreset "
+         f"{int(restarted.sum())} of {B_MAIN} envs")
+    for what, x in (("obs", st.obs), ("reward", st.reward),
+                    ("qpos", st.data.qpos)):
+      if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{task_id}: non-finite {what} at B={B_MAIN}")
+    if not lowest > 0.0:
+      raise AssertionError(f"{task_id}: the object fell through the plane")
+    if not bool(touched.any()):
+      raise AssertionError(f"{task_id}: no env's object touched the hand")
+    if not bool(restarted.all()) or bool((st.steps >= env.horizon).any()):
+      raise AssertionError(f"{task_id}: an env did not autoreset at its "
+                           f"horizon")
+    if launches <= 0:
+      raise AssertionError(f"{task_id} never launched the SPD kernel")
+  return {"launches": total}
+
+
+def phase_manip_train() -> dict:
+  """13d: the CLI's SAC on the hold task."""
+  from myosuite_mjx_tpu_torch.train import metrics
+  from myosuite_mjx_tpu_torch.train.sac import SAC, SACConfig
+  N = SAC_CFG["num_envs"]
+  sac_kw = {k: v for k, v in SAC_CFG.items() if k != "num_envs"}
+  with tempfile.TemporaryDirectory() as tmp, _sac_defaults(**sac_kw):
+    run = _cli(["--env", MANIP_TRAIN_ENV, "--device", DEVICE,
+                "--log-every", "1", "--algo", "sac", "--num-envs", str(N),
+                "--total-steps", str(MANIP_SAC_ITERS * N),
+                "--checkpoint-dir", os.path.join(tmp, "sac")])
+    cfg = SACConfig(num_envs=N)
+  env = _task_env(MANIP_TRAIN_ENV)
+  init = _sac_nets(SAC(env, cfg, DEVICE).init(
+      generator=torch.Generator(device=DEVICE).manual_seed(0)))
+  final = _sac_nets(run["state"])
+  moved = {k: float((final[k] - init[k]).abs().max()) for k in SAC_NETS}
+  recs = run["records"]
+  _say(f"manip train SAC {MANIP_TRAIN_ENV} via the CLI: {N} envs x "
+       f"{SAC_CFG['updates_per_step']} updates, {MANIP_SAC_ITERS} "
+       f"iterations in {run['seconds']:.3f} s; env-steps/s after the first "
+       f"{[r['steps_per_s'] for r in recs[1:]]}; largest change from the "
+       f"init {moved}; spd_solve launches {run['launches']}")
+  for rec in recs:
+    metrics.check_finite(rec, where="chip_smoke phase 13d")
+  if [r["iter"] for r in recs] != list(range(1, MANIP_SAC_ITERS + 1)):
+    raise AssertionError("the CLI did not log every iteration")
+  if not all(moved[k] > 0 for k in ("actor", "q", "log_alpha")):
+    raise AssertionError(f"SAC's nets did not move: {moved}")
+  if run["launches"] <= 0:
+    raise AssertionError("phase 13d never launched the SPD kernel")
+  return {"launches": run["launches"]}
+
+
+def phase_contact_tasks(phase4_rate: float, cpu_refs=None) -> dict:
+  """Phase 13: 13a-13d, each timed; ``cpu_refs`` is a future of
+  ``cpu_references()``."""
+  t0 = time.perf_counter()
+  refs = cpu_refs.result() if cpu_refs is not None else None
+  _say(f"phase 13: waited {time.perf_counter() - t0:.1f} s for the CPU "
+       f"references")
+  out = {}
+  for part, fn, args in (("13a", phase_pairs, ()),
+                         ("13b", phase_prims, (refs,)),
+                         ("13c", phase_manip, (phase4_rate, refs)),
+                         ("13d", phase_manip_train, ())):
+    t0 = time.perf_counter()
+    res = fn(*args)
+    _say(f"phase {part}: {time.perf_counter() - t0:.1f} s")
+    if "launches" in res:
+      out[f"phase{part}_launches"] = res["launches"]
+  return out
+
+
 @contextlib.contextmanager
 def _launch_shapes(shapes: set):
   """Record the [B, n] of every ``linalg.spd_solve`` call on the card made
@@ -1423,6 +1890,15 @@ def _timed_phase(number: int, fn, *args):
 def main() -> int:
   smi = phase_device()
   _timed_phase(2, phase_build)
+  # phase 13's CPU references, in one worker while the card works
+  pool = concurrent.futures.ProcessPoolExecutor(
+      1, mp_context=multiprocessing.get_context("spawn"))
+  with pool:
+    cpu_refs = pool.submit(cpu_references)
+    return _main_phases(smi, cpu_refs)
+
+
+def _main_phases(smi: str, cpu_refs) -> int:
   kernel = _timed_phase(3, phase_kernel_check)
   shapes: set = set()
   with _launch_shapes(shapes):
@@ -1436,8 +1912,10 @@ def main() -> int:
     cli_run = _timed_phase(10, phase_cli)
     proof = _timed_phase(11, phase_prove_sac)
     physics = _timed_phase(12, phase_physics)
+    contact = _timed_phase(13, phase_contact_tasks,
+                           main_path["physics_steps_per_s"], cpu_refs)
   unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
-  _say(f"spd_solve shapes launched in phases 4-12: {sorted(shapes)}; not "
+  _say(f"spd_solve shapes launched in phases 4-13: {sorted(shapes)}; not "
        f"held against the plain version in phase 3: {sorted(unchecked)}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
@@ -1449,7 +1927,7 @@ def main() -> int:
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
       "launches": main_path["launches"], **train, **sac, **conditions,
       **cli_run, **proof, "physics_launches": physics["physics_launches"],
-      **kernel}]}))
+      **contact, **kernel}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -41,6 +41,13 @@ _THUMB_LEN = (0.035, 0.030, 0.022)
 # the thumb's is THtip
 _TIPS = {2: "IFtip", 3: "MFtip", 4: "RFtip", 5: "LFtip"}
 _THUMB_RADIUS = 0.0095
+# object scenes: the forearm's height; the contype bits of the palm pad and
+# of an object. An object collides with every digit (the bones' contype
+# bits 2-6), the palm pad and the plane (bit 0).
+_TURNED_HEIGHT = 0.09
+_PALM_BIT = 1 << 8
+_OBJECT_BIT = 1 << 9
+_DIGIT_BITS = sum(1 << (d + 1) for d in range(1, 6))
 
 
 def _f(*xs: float) -> str:
@@ -201,8 +208,16 @@ def _muscle(name: str, force: float) -> str:
           f'ctrlrange="0 1"/>')
 
 
-def hand_fixture_xml(digits: int = 5) -> str:
-  """MJCF text of the synthetic hand: a thumb plus ``digits - 1`` fingers."""
+def hand_fixture_xml(digits: int = 5, obj: str = "") -> str:
+  """MJCF text of the synthetic hand: a thumb plus ``digits - 1`` fingers.
+
+  With ``obj`` (worldbody MJCF of one object, see the object fixtures
+  below) the hand is the object scenes' variant: the forearm is raised
+  and turned thumb-up, as MyoHand's neutral posture, and pronation turns
+  the other way, so that pro_sup = -1.5 (the tasks' palm-up init) turns
+  the palm up; pro_sup's range reaches -1.6; a colliding pad lies on the
+  palm; ``obj`` follows the hand in the worldbody.
+  """
   if not 1 <= digits <= 5:
     raise ValueError(f"digits must be in 1..5, got {digits}")
   fingers = [(k, *_FINGERS[k - 2]) for k in range(2, digits + 1)]
@@ -216,12 +231,21 @@ def hand_fixture_xml(digits: int = 5) -> str:
     muscles += [_muscle(f"{n}{k}", 7.0 + 0.6 * i + 0.2 * k)
                 for i, n in enumerate(_FINGER_MUSCLES)]
   actuators = "\n    ".join(muscles)
+  if obj:
+    forearm = f'pos="0 0 {_TURNED_HEIGHT:.6g}" euler="1.5708 0 0"'
+    pro_sup = 'axis="-1 0 0" range="-1.6 1.0"'
+    palm_pad = f"""
+          <geom name="palm_pad" type="capsule" fromto="0.012 -0.01 -0.006 0.062 -0.01 -0.006" size="0.02" contype="{_PALM_BIT}" conaffinity="0"/>"""
+  else:
+    forearm = 'pos="0 0 0.052"'
+    pro_sup = 'axis="1 0 0" range="-1.0 1.0"'
+    palm_pad = ""
   return f"""<mujoco model="hand_fixture_{digits}">
   <compiler angle="radian" autolimits="true"/>
   <option timestep="0.002" iterations="100" ls_iterations="50"/>
   <worldbody>
     <geom name="floor" type="plane" size="0.5 0.5 0.05" contype="1" conaffinity="1"/>
-    <body name="forearm" pos="0 0 0.052">
+    <body name="forearm" {forearm}>
       <inertial pos="0.06 0 0" mass="0.3" diaginertia="0.00004 0.0004 0.0004"/>
       <geom name="forearm_bone" type="capsule" fromto="0 0 0 0.11 0 0" size="0.016" contype="0" conaffinity="0"/>
       <site name="fa_fcr" pos="0.03 0.0102 -0.0185"/>
@@ -236,7 +260,7 @@ def hand_fixture_xml(digits: int = 5) -> str:
       <site name="fa_apl" pos="0.05 0.0203 0.0006"/>
       <body name="radius" pos="0 0 0">
         <inertial pos="0.07 0 0" mass="0.05" diaginertia="0.000006 0.00008 0.00008"/>
-        <joint name="pro_sup" axis="1 0 0" range="-1.0 1.0" damping="0.03" armature="0.0004"/>
+        <joint name="pro_sup" {pro_sup} damping="0.03" armature="0.0004"/>
         <geom name="radius_bone" type="capsule" fromto="0.06 0 0 0.11 0 0" size="0.011" contype="0" conaffinity="0"/>
         <geom name="wrist_wrap" type="sphere" pos="0.118 0 -0.001" size="0.0082" contype="0" conaffinity="0"/>
         <geom name="wrist_wrap_d" type="sphere" pos="0.117 -0.004 0.002" size="0.0075" contype="0" conaffinity="0"/>
@@ -259,10 +283,10 @@ def hand_fixture_xml(digits: int = 5) -> str:
           <site name="palm_fpb" pos="0.026 0.005 -0.0131"/>
           <site name="palm_op" pos="0.019 0.001 -0.0135"/>
           <site name="palm_adp" pos="0.05 -0.01 -0.0122"/>
-          <site name="palm_fpb2" pos="0.03 0.0152 -0.0117"/>{palm_parts}{_thumb_body()}{finger_bodies}
+          <site name="palm_fpb2" pos="0.03 0.0152 -0.0117"/>{palm_pad}{palm_parts}{_thumb_body()}{finger_bodies}
         </body>
       </body>
-    </body>
+    </body>{obj}
   </worldbody>
   <tendon>{tendons}
   </tendon>
@@ -313,6 +337,142 @@ def free_fixture_xml() -> str:
     <body name="bar" mocap="true" pos="0 0 0.015">
       <geom name="bar_geom" type="capsule" fromto="0 -0.1 0 0 0.1 0" size="0.015" contype="4" conaffinity="0"/>
     </body>
+  </worldbody>
+</mujoco>
+"""
+
+
+# ---------------------------------------------------------------------------
+# hand-object scenes: the hand of hand_fixture_xml(digits, obj) plus one
+# object. The palm-up tasks (hold, pen, die) start at pro_sup = -1.5 with
+# every other hand joint at 0; there the palm pad's top lies near
+# (0.157, 0.010, 0.115) and the fingers' tops near z = 0.099. Each object
+# starts 1.5-4 mm above the palm and falls onto it.
+# ---------------------------------------------------------------------------
+
+_OBJ = f'contype="{_OBJECT_BIT}" conaffinity="{1 | _DIGIT_BITS | _PALM_BIT}"'
+
+
+def key_fixture_xml(digits: int = 5) -> str:
+  """A key on a hinge, the last dof, between the thumb and index tips of
+  the open hand (every hand joint at 0, thumb up): a box bow whose faces
+  look at the two tips, about 5 cm from each, and a cylinder shaft along
+  the hinge. ``keyhead`` sits at the bow's centre. The key collides with
+  the digits and the palm (capsule-box, capsule-cylinder), not the plane.
+  hand23: nv 24."""
+  key = f"""
+    <body name="key" pos="0.245 0.0098 0.1358" xyaxes="0.8165 -0.1959 -0.543 -0.5538 0 -0.8327">
+      <joint name="key_hinge" axis="0 0 1" damping="0.002" armature="0.00002"/>
+      <geom name="key_bow" type="box" size="0.003 0.012 0.012" density="2000" contype="{_OBJECT_BIT}" conaffinity="{_DIGIT_BITS | _PALM_BIT}"/>
+      <geom name="key_shaft" type="cylinder" fromto="0 0 0.012 0 0 0.05" size="0.004" density="2000" contype="{_OBJECT_BIT}" conaffinity="{_DIGIT_BITS | _PALM_BIT}"/>
+      <site name="keyhead"/>
+    </body>"""
+  return hand_fixture_xml(digits, key)
+
+
+def hold_fixture_xml(digits: int = 5) -> str:
+  """A free ellipsoid over the palm, the last joint and the last geom
+  (``ObjHoldRandom`` overlays ``geom_size[-1]``), with an ``object`` site
+  at its centre, and a ``goal`` site on a static body 2 cm above where
+  the object starts. hand23: nv 29."""
+  obj = f"""
+    <body name="goal" pos="0.17 0.005 0.165">
+      <site name="goal" size="0.01"/>
+    </body>
+    <body name="object" pos="0.17 0.005 0.145">
+      <freejoint name="object_free"/>
+      <geom name="object" type="ellipsoid" size="0.024 0.021 0.026" mass="0.05" {_OBJ}/>
+      <site name="object"/>
+    </body>"""
+  return hand_fixture_xml(digits, obj)
+
+
+def pen_fixture_xml(digits: int = 5) -> str:
+  """A cylinder pen across the palm on six scalar joints (slides along
+  x, y, z, then hinges about x, y, z of its frame), the last six dofs, not
+  a free joint; ``object_top`` and ``object_bottom`` at its ends. A
+  static ``target`` body above carries ``target_top`` and
+  ``target_bottom`` along the same axis; ``eps_ball``, the desired
+  position, is where the pen starts. condim 4, as MyoSuite's pen. hand23:
+  nv 29."""
+  pen = f"""
+    <site name="eps_ball" pos="0.17 0.004 0.125" size="0.075"/>
+    <body name="target" pos="0.17 0.004 0.2" euler="1.5708 0 0">
+      <site name="target_top" pos="0 0 0.055"/>
+      <site name="target_bottom" pos="0 0 -0.055"/>
+    </body>
+    <body name="Object" pos="0.17 0.004 0.125" euler="1.5708 0 0">
+      <joint name="pen_x" type="slide" axis="1 0 0"/>
+      <joint name="pen_y" type="slide" axis="0 1 0"/>
+      <joint name="pen_z" type="slide" axis="0 0 1"/>
+      <joint name="pen_rx" type="hinge" axis="1 0 0" damping="0.0002" armature="0.00002"/>
+      <joint name="pen_ry" type="hinge" axis="0 1 0" damping="0.0002" armature="0.00002"/>
+      <joint name="pen_rz" type="hinge" axis="0 0 1" damping="0.0002" armature="0.00002"/>
+      <geom name="pen" type="cylinder" size="0.008 0.055" mass="0.02" condim="4" {_OBJ}/>
+      <site name="object_top" pos="0 0 0.055"/>
+      <site name="object_bottom" pos="0 0 -0.055"/>
+    </body>"""
+  return hand_fixture_xml(digits, pen)
+
+
+def die_fixture_xml(digits: int = 5) -> str:
+  """A free die (a box) over the palm, the last joint, with ``object_o``
+  at its centre; a static ``target`` body 6 cm above with ``target_o``
+  at its origin. condim 4, as MyoChallenge's die. hand23: nv 29."""
+  die = f"""
+    <body name="target" pos="0.175 0.005 0.193">
+      <site name="target_o" size="0.016"/>
+    </body>
+    <body name="die" pos="0.175 0.005 0.133">
+      <freejoint name="die_free"/>
+      <geom name="die" type="box" size="0.016 0.016 0.016" mass="0.108" condim="4" {_OBJ}/>
+      <site name="object_o"/>
+    </body>"""
+  return hand_fixture_xml(digits, die)
+
+
+def prims_fixture_xml() -> str:
+  """Free bodies of every primitive type over a plane ("prims"): a sphere,
+  a capsule, an ellipsoid, a cylinder and a box, and a sixth body that
+  carries one geom of each type on a flat plate, so that every one of the
+  20 ported pair types is a candidate (the plane with each type, each
+  type with each, the same types between the sixth body and the others).
+  The bodies start a few centimetres up and land on the plane and on each
+  other. The round bodies, the capsule and the cylinder on their sides,
+  have condim 6 (rolling friction stops them), the plate and its
+  cylinder condim 4, the box condim 3. nv 36."""
+  def body(name, pos, geoms):
+    return f"""
+    <body name="{name}" pos="{pos}">
+      <freejoint/>{geoms}
+    </body>"""
+  g = '\n      <geom type="{}" size="{}" {}/>'
+  roll = 'condim="6" friction="1 0.01 0.01"'
+  spin = 'condim="4" friction="1 0.01 0.01"'
+  bodies = "".join([
+      body("ball", "0.0 0.0 0.05", g.format("sphere", "0.02", roll)),
+      body("pill", "0.09 0.0 0.03",
+           g.format("capsule", "0.015 0.03", 'euler="1.5708 0 0" ' + roll)),
+      body("egg", "0.0 0.09 0.05",
+           g.format("ellipsoid", "0.03 0.022 0.016", roll)),
+      body("can", "-0.09 0.0 0.03",
+           g.format("cylinder", "0.02 0.025", 'euler="1.5708 0 0" ' + roll)),
+      body("brick", "0.0 -0.09 0.04", g.format("box", "0.03 0.02 0.015", "")),
+      body("plate", "0.0 0.0 0.015",
+           g.format("box", "0.06 0.06 0.006", spin)
+           + '\n      <geom type="sphere" size="0.012" pos="0.035 0.035 0.018" '
+           + roll + '/>'
+           + '\n      <geom type="capsule" size="0.008 0.02" '
+           'pos="-0.035 0.035 0.014" euler="0 1.5708 0" ' + roll + '/>'
+           + '\n      <geom type="ellipsoid" size="0.015 0.01 0.008" '
+           'pos="-0.035 -0.035 0.014" ' + roll + '/>'
+           + '\n      <geom type="cylinder" size="0.01 0.008" '
+           'pos="0.035 -0.035 0.014" ' + spin + '/>')])
+  return f"""<mujoco model="prims_fixture">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="0.5 0.5 0.05"/>{bodies}
   </worldbody>
 </mujoco>
 """

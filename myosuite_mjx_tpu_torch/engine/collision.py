@@ -5,10 +5,13 @@ pairs and their per-slot parameters are static host data (same filters and
 combination rules as the reference); every candidate contributes fixed
 contact slots, of which the ``max_contacts`` deepest are kept per env.
 
-The narrowphase ported so far covers the pairs MyoHand-like scenes
-instantiate: capsule-capsule and plane-capsule. Building the collision
-layout of a model with any other colliding pair raises
-``NotImplementedError`` naming the pair; no pair is ever skipped.
+The narrowphase covers every primitive pair of the reference: the
+analytic plane, sphere, capsule, ellipsoid, cylinder and box pairs, and
+the generic convex path (MPR penetration and alternating closest points)
+for the ellipsoid, cylinder and box cross pairs, with the reference's
+fixed trip counts. Heightfield and mesh pairs are not ported: building
+the collision layout of a model with one raises ``NotImplementedError``
+naming the pair; no pair is ever skipped.
 """
 from __future__ import annotations
 
@@ -65,9 +68,10 @@ _SUPPORTED = {
     (GeomType.ELLIPSOID, GeomType.MESH),
 }
 
-# type pairs whose narrowphase is ported
-PORTED = {(GeomType.PLANE, GeomType.CAPSULE),
-          (GeomType.CAPSULE, GeomType.CAPSULE)}
+# type pairs whose narrowphase is ported: every supported pair but the
+# heightfield and mesh ones
+PORTED = {p for p in _SUPPORTED
+          if GeomType.HFIELD not in p and GeomType.MESH not in p}
 
 
 def _ordered(m: Model, g1: int, g2: int) -> tuple[int, int] | None:
@@ -232,7 +236,16 @@ def collision_spec(m: DeviceModel) -> _CollisionSpec | None:
 
 
 # ---------------------------------------------------------------------------
-# contact frame and narrowphase primitives (batched over [..., 3])
+# contact frame and narrowphase primitives
+#
+# Every function takes a batch over leading dims: points and directions
+# [..., 3], rotation matrices [..., 3, 3], sizes [..., 3] and radii [...].
+# The single-point helpers return (dist [...], pos [..., 3], n [..., 3]);
+# the pair functions of ``_narrow_fn`` return the same with a point axis,
+# (dist [..., P], pos [..., P, 3], n [..., P or 1, 3]). The normal points from
+# geom1 into geom2 and pos is the mid-penetration point, as the reference's.
+# Iterative routines run the reference's fixed trip counts as masked
+# updates over the whole batch: no early exit and no host sync.
 # ---------------------------------------------------------------------------
 
 
@@ -243,6 +256,29 @@ def _dot(a, b):
 def _cross(a, b):
   a, b = torch.broadcast_tensors(a, b)
   return torch.linalg.cross(a, b, dim=-1)
+
+
+def _norm(x):
+  return torch.linalg.vector_norm(x, dim=-1)
+
+
+def _unit(x):
+  return x / torch.clamp(_norm(x), min=_MINVAL)[..., None]
+
+
+def _mv(mat, v):
+  """mat @ v over leading dims."""
+  return (mat * v[..., None, :]).sum(-1)
+
+
+def _mtv(mat, v):
+  """mat^T @ v over leading dims."""
+  return (mat * v[..., :, None]).sum(-2)
+
+
+def _where3(c, a, b):
+  """where over [..., 3] with a condition [...]."""
+  return torch.where(c[..., None], a, b)
 
 
 def make_frame(n: torch.Tensor) -> torch.Tensor:
@@ -259,18 +295,18 @@ def make_frame(n: torch.Tensor) -> torch.Tensor:
 
 def _sphere_sphere(c1, r1, c2, r2):
   d = c2 - c1
-  ln = torch.linalg.vector_norm(d, dim=-1)
+  ln = _norm(d)
   n = d / torch.clamp(ln, min=_MINVAL)[..., None]
   dist = ln - (r1 + r2)
   pos = c1 + n * (r1 + 0.5 * dist)[..., None]
-  return [(dist, pos, n)]
+  return dist, pos, n
 
 
 def _plane_sphere(ppos, pmat, c, r):
   n = pmat[..., :, 2]
   dist = _dot(c - ppos, n) - r
   pos = c - n * (r + 0.5 * dist)[..., None]
-  return [(dist, pos, n)]
+  return dist, pos, n
 
 
 def _capsule_ends(gpos, gmat, half):
@@ -280,7 +316,57 @@ def _capsule_ends(gpos, gmat, half):
 
 def _plane_capsule(ppos, pmat, gpos, gmat, r, half):
   a, b = _capsule_ends(gpos, gmat, half)
-  return _plane_sphere(ppos, pmat, a, r) + _plane_sphere(ppos, pmat, b, r)
+  ends = torch.stack([a, b], dim=-2)                       # [..., 2, 3]
+  return _plane_sphere(ppos[..., None, :], pmat[..., None, :, :], ends,
+                       r[..., None])
+
+
+def _plane_ellipsoid(ppos, pmat, gpos, gmat, radii):
+  n = pmat[..., :, 2]
+  # support point in -n direction: x = c - E s / |s|, s = diag(r) E^T n
+  s = radii * _mtv(gmat, n)
+  sn = _norm(s)
+  sup = gpos - _mv(gmat, radii * s) / torch.clamp(sn, min=_MINVAL)[..., None]
+  dist = _dot(sup - ppos, n)
+  pos = sup - 0.5 * dist[..., None] * n
+  return dist, pos, n
+
+
+# the corner signs of _plane_box, in the reference's loop order (x, y, z)
+_BOX_CORNERS = np.array([[sx, sy, sz] for sx in (-1.0, 1.0)
+                         for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)])
+
+
+def _plane_box(ppos, pmat, gpos, gmat, size):
+  """All 8 corners (the solver keeps the active ones)."""
+  n = pmat[..., None, :, 2]                                  # [..., 1, 3]
+  local = size[..., None, :] * size.new_tensor(_BOX_CORNERS)  # [..., 8, 3]
+  corner = gpos[..., None, :] + _mv(gmat[..., None, :, :], local)
+  dist = _dot(corner - ppos[..., None, :], n)
+  pos = corner - 0.5 * dist[..., None] * n
+  return dist, pos, n
+
+
+def _plane_cylinder(ppos, pmat, gpos, gmat, r, half):
+  """The rim point deepest along -n at both ends, then two more rim
+  points half a radius across (stability when lying flat)."""
+  n = pmat[..., :, 2]
+  axis = gmat[..., :, 2]
+  # rim direction: project -n onto the disc plane
+  pr = -n + axis * _dot(axis, n)[..., None]
+  prn = _norm(pr)
+  rim = _where3(prn > 1e-9, pr / torch.clamp(prn, min=_MINVAL)[..., None],
+                gmat[..., :, 0])
+  perp = _cross(axis, rim)
+  send = n.new_tensor([-1.0, 1.0])[:, None]                   # [2, 1]
+  center = (gpos[..., None, :]
+            + send * half[..., None, None] * axis[..., None, :])
+  p = torch.cat([center + (rim * r[..., None])[..., None, :],
+                 center + 0.5 * r[..., None, None] * perp[..., None, :]
+                 * send], dim=-2)                             # [..., 4, 3]
+  dist = _dot(p - ppos[..., None, :], n[..., None, :])
+  pos = p - 0.5 * dist[..., None] * n[..., None, :]
+  return dist, pos, n[..., None, :]
 
 
 def _closest_on_seg(a, b, p):
@@ -288,6 +374,11 @@ def _closest_on_seg(a, b, p):
   t = torch.clamp(_dot(p - a, d) / torch.clamp(_dot(d, d), min=_MINVAL),
                   0.0, 1.0)
   return a + t[..., None] * d
+
+
+def _sphere_capsule(c1, r1, gpos, gmat, r2, half):
+  a, b = _capsule_ends(gpos, gmat, half)
+  return _sphere_sphere(c1, r1, _closest_on_seg(a, b, c1), r2)
 
 
 def _seg_seg_closest(a0, a1, b0, b1):
@@ -315,32 +406,543 @@ def _capsule_capsule(g1pos, g1mat, r1, h1, g2pos, g2mat, r2, h2):
   return _sphere_sphere(p1, r1, p2, r2)
 
 
-def _narrow(types, p1, m1, s1, p2, m2, s2):
-  if types == (GeomType.PLANE, GeomType.CAPSULE):
-    return _plane_capsule(p1, m1, p2, m2, s2[..., 0], s2[..., 1])
-  if types == (GeomType.CAPSULE, GeomType.CAPSULE):
-    return _capsule_capsule(p1, m1, s1[..., 0], s1[..., 1],
-                            p2, m2, s2[..., 0], s2[..., 1])
-  raise NotImplementedError(f"narrowphase for {types}")
+def _ellipsoid_proj(p, radii, mu_ws=None, iters: int = 16):
+  """Closest point on an axis-aligned ellipsoid to the local point p.
+
+  Newton on g(mu) = sum a_i^2 p_i^2 / (a_i^2 + mu)^2 - 1 (the KKT
+  multiplier), ``iters`` masked steps from a certified start or a warm
+  start ``mu_ws``; lanes that did not converge fall back to the radial
+  projection (see the reference for the analysis). Returns (surface
+  point, outward unit normal, signed distance, mu).
+  """
+  a2 = radii * radii
+  amin2 = a2.amin(-1)
+  den_floor = (amin2 * 1e-7)[..., None]
+  num = a2 * p * p
+
+  def g_and_dg(mu):
+    den = torch.maximum(a2 + mu[..., None], den_floor)
+    t = num / (den * den)
+    return t.sum(-1) - 1.0, (-2.0 * t / den).sum(-1)
+
+  lo = -amin2 * (1.0 - 1e-12)
+  q = p / radii
+  rad2 = (q * q).sum(-1)
+  inside0 = rad2 < 1.0
+  # certified left-of-root start: per-axis bound mu >= a_i |p_i| - a_i^2
+  cert = torch.maximum((radii * p.abs() - a2).amax(-1), lo)
+  if mu_ws is None:
+    mu = cert
+  else:
+    mu = torch.maximum(mu_ws, cert)
+    mu = torch.where(inside0,
+                     torch.minimum(torch.maximum(mu, lo), torch.zeros_like(mu)),
+                     mu)
+  gtol = 32.0 * torch.finfo(p.dtype).eps
+  for _ in range(iters):
+    gv, dg = g_and_dg(mu)
+    mu_n = torch.maximum(mu - gv / torch.clamp(dg, max=-_MINVAL), lo)
+    mu = torch.where(gv.abs() > gtol, mu_n, mu)
+  x = a2 * p / torch.maximum(a2 + mu[..., None], den_floor)
+  # unconverged rescue: the radial projection (NaN-safe predicate)
+  gv_f, _ = g_and_dg(mu)
+  xr = p / torch.sqrt(torch.clamp(rad2, min=1e-12))[..., None]
+  x = _where3(~(gv_f.abs() <= 1e-3), xr, x)
+  n = _unit(x / a2)
+  sign = torch.where(inside0, -1.0, 1.0).to(p.dtype)
+  dist = _norm(p - x) * sign
+  return x, n, dist, mu
+
+
+def _ellipsoid_surface_point(p, radii):
+  x, n, dist, _ = _ellipsoid_proj(p, radii)
+  return x, n, dist
+
+
+def _sphere_ellipsoid(c1, r1, gpos, gmat, radii):
+  local = _mtv(gmat, c1 - gpos)
+  x, n_local, dist_c = _ellipsoid_surface_point(local, radii)
+  dist = dist_c - r1
+  n = -_mv(gmat, n_local)          # from the sphere (g1) into the ellipsoid
+  surf_ell = gpos + _mv(gmat, x)
+  surf_sph = c1 + n * r1[..., None]
+  return dist, 0.5 * (surf_ell + surf_sph), n
+
+
+def _seg_surface_argmin(a_l, b_l, surf_fn, ws0, iters: int = 12):
+  """t in [0, 1] minimizing the signed distance of a_l + t (b_l - a_l) to
+  a convex surface: a safeguarded secant on f'(t) = n(p(t)) . (b_l - a_l)
+  (bisection on even steps). ``surf_fn(p, ws) -> (x, n, dist, ws)``
+  carries a warm start ``ws`` from one evaluation to the next. Returns
+  (t, ws)."""
+  seg = b_l - a_l
+
+  def fp(t, ws):
+    _, n, _, ws = surf_fn(a_l + t[..., None] * seg, ws)
+    return _dot(n, seg), ws
+
+  zero = torch.zeros(a_l.shape[:-1], dtype=a_l.dtype, device=a_l.device)
+  one = torch.ones_like(zero)
+  f0, ws = fp(zero, ws0)
+  f1, ws = fp(one, ws)
+  lo, flo, hi, fhi = zero, f0, one, f1
+  for i in range(iters):
+    mid = 0.5 * (lo + hi)
+    if i % 2 == 1:
+      denom = fhi - flo
+      sec = hi - fhi * (hi - lo) / torch.where(denom.abs() < _MINVAL,
+                                               torch.inf, denom)
+      s = torch.where((sec > lo) & (sec < hi), sec, mid)
+    else:
+      s = mid
+    fs, ws = fp(s, ws)
+    neg = fs < 0
+    lo, flo, hi, fhi = (torch.where(neg, s, lo), torch.where(neg, fs, flo),
+                        torch.where(neg, hi, s), torch.where(neg, fhi, fs))
+  t_root = torch.where(flo.abs() < fhi.abs(), lo, hi)
+  return torch.where(f0 >= 0, zero, torch.where(f1 <= 0, one, t_root)), ws
+
+
+def _capsule_ellipsoid(gpos1, gmat1, r1, h1, gpos2, gmat2, radii):
+  """1D convex minimization over the capsule axis of the point-ellipsoid
+  signed distance; the KKT multiplier warm-starts the projections (a
+  12-step cold start, 6 steps per search evaluation, 16 at the end)."""
+  a, b = _capsule_ends(gpos1, gmat1, h1)
+  a_l = _mtv(gmat2, a - gpos2)
+  b_l = _mtv(gmat2, b - gpos2)
+
+  def surf(p, mu):
+    return _ellipsoid_proj(p, radii, mu_ws=mu, iters=6)
+
+  _, _, _, mu0 = _ellipsoid_proj(a_l, radii, iters=12)
+  t, mu = _seg_surface_argmin(a_l, b_l, surf, mu0, iters=11)
+  p = a + t[..., None] * (b - a)
+  local = _mtv(gmat2, p - gpos2)
+  x, n_local, dist_c, _ = _ellipsoid_proj(local, radii, mu_ws=mu, iters=16)
+  dist = dist_c - r1
+  n = -_mv(gmat2, n_local)       # from the capsule (g1) into the ellipsoid
+  surf_ell = gpos2 + _mv(gmat2, x)
+  surf_sph = p + n * r1[..., None]
+  return dist, 0.5 * (surf_ell + surf_sph), n
+
+
+def _cylinder_surface_point(p, r, half):
+  """Closest surface point, outward normal and signed distance of the
+  local point p to a z-axis cylinder (radius r, half-height half)."""
+  pxy, pz = p[..., :2], p[..., 2]
+  rd = _norm(pxy)
+  dir_xy = pxy / torch.clamp(rd, min=_MINVAL)[..., None]
+  zero = torch.zeros_like(pz)
+  radial_dir = torch.cat([dir_xy, zero[..., None]], dim=-1)
+  zsign = torch.where(pz >= 0, 1.0, -1.0).to(p.dtype)
+
+  side_out = rd > r
+  cap_out = pz.abs() > half
+  # outside: the corner, side or cap point
+  clamp_xy = torch.where(side_out, r, rd)
+  clamp_z = torch.where(cap_out, zsign * half, pz)
+  surf_out = torch.cat([dir_xy * clamp_xy[..., None], clamp_z[..., None]],
+                       dim=-1)
+  d_out = p - surf_out
+  dn_out = _norm(d_out)
+  n_out = d_out / torch.clamp(dn_out, min=_MINVAL)[..., None]
+  # inside: the nearest face (side or cap)
+  side_gap = r - rd
+  cap_gap = half - pz.abs()
+  use_side = side_gap < cap_gap
+  surf_in = _where3(use_side,
+                    torch.cat([dir_xy * r[..., None], pz[..., None]], dim=-1),
+                    torch.cat([pxy, (zsign * half)[..., None]], dim=-1))
+  n_in = _where3(use_side, radial_dir,
+                 torch.stack([zero, zero, zsign], dim=-1))
+  d_in = -torch.minimum(side_gap, cap_gap)
+
+  outside = side_out | cap_out
+  return (_where3(outside, surf_out, surf_in), _where3(outside, n_out, n_in),
+          torch.where(outside, dn_out, d_in))
+
+
+def _sphere_cylinder(c1, r1, gpos, gmat, r2, h2):
+  local = _mtv(gmat, c1 - gpos)
+  surf_l, n_l, dist_c = _cylinder_surface_point(local, r2, h2)
+  dist = dist_c - r1
+  n = -_mv(gmat, n_l)             # from the sphere (g1) into the cylinder
+  surf_cyl = gpos + _mv(gmat, surf_l)
+  surf_sph = c1 + n * r1[..., None]
+  return dist, 0.5 * (surf_cyl + surf_sph), n
+
+
+def _capsule_cylinder(gpos1, gmat1, r1, h1, gpos2, gmat2, r2, h2):
+  """1D convex minimization over the capsule axis of the point-cylinder
+  signed distance (see _seg_surface_argmin)."""
+  a, b = _capsule_ends(gpos1, gmat1, h1)
+  a_l = _mtv(gmat2, a - gpos2)
+  b_l = _mtv(gmat2, b - gpos2)
+
+  def surf(p, ws):
+    return _cylinder_surface_point(p, r2, h2) + (ws,)
+
+  t, _ = _seg_surface_argmin(a_l, b_l, surf, None)
+  p = a + t[..., None] * (b - a)
+  return _sphere_cylinder(p, r1, gpos2, gmat2, r2, h2)
+
+
+def _onehot3(k, like):
+  return torch.arange(3, device=like.device) == k[..., None]
+
+
+def _sphere_box(c1, r1, gpos, gmat, size):
+  local = _mtv(gmat, c1 - gpos)
+  size = size.expand(local.shape)
+  clamped = torch.minimum(torch.maximum(local, -size), size)
+  inside = (local.abs() < size).all(-1)
+  # outside: the closest point of the box
+  d = local - clamped
+  ln = _norm(d)
+  n_out_local = d / torch.clamp(ln, min=_MINVAL)[..., None]
+  dist_out = ln - r1
+  # inside: out through the nearest face
+  face_dist = size - local.abs()
+  k = face_dist.argmin(-1)
+  hot = _onehot3(k, local)
+  sign = torch.gather(torch.sign(local), -1, k[..., None])[..., 0]
+  n_in_local = torch.where(hot, sign[..., None], torch.zeros_like(local))
+  dist_in = -(torch.gather(face_dist, -1, k[..., None])[..., 0] + r1)
+  clamped_in = torch.where(
+      hot, (sign * torch.gather(size, -1, k[..., None])[..., 0])[..., None],
+      local)
+  n_local = _where3(inside, n_in_local, n_out_local)
+  dist = torch.where(inside, dist_in, dist_out)
+  surf_local = _where3(inside, clamped_in, clamped)
+  n_box_to_sphere = _mv(gmat, n_local)
+  surf = gpos + _mv(gmat, surf_local)
+  pos = 0.5 * (surf + c1 - n_box_to_sphere * r1[..., None])
+  return dist, pos, -n_box_to_sphere  # n from the sphere (g1) into the box
+
+
+def _capsule_box(gpos1, gmat1, r1, h1, gpos2, gmat2, size):
+  """Sphere-box at both capsule ends and the midpoint (3 points)."""
+  a, b = _capsule_ends(gpos1, gmat1, h1)
+  c = torch.stack([a, b, 0.5 * (a + b)], dim=-2)           # [..., 3, 3]
+  return _sphere_box(c, r1[..., None], gpos2[..., None, :],
+                     gmat2[..., None, :, :], size[..., None, :])
+
+
+# ---------------------------------------------------------------------------
+# generic convex-convex (ellipsoid, cylinder and box cross pairs): support
+# map MPR for penetration, alternating closest-point projection for
+# separation; one contact point per pair
+# ---------------------------------------------------------------------------
+
+
+def _support_local(t: int):
+  """f(size, d_local) -> support point of the geom in its local frame."""
+  T = GeomType
+  if t == T.SPHERE:
+    return lambda s, d: (s[..., 0:1] * d
+                         / torch.clamp(_norm(d), min=_MINVAL)[..., None])
+  if t == T.CAPSULE:
+    def f(s, d):
+      z = torch.where(d[..., 2] >= 0, s[..., 1], -s[..., 1])
+      zaxis = torch.stack([torch.zeros_like(z), torch.zeros_like(z), z], -1)
+      return s[..., 0:1] * _unit(d) + zaxis
+    return f
+  if t == T.ELLIPSOID:
+    def f(s, d):
+      w = s * d
+      return s * w / torch.clamp(_norm(w), min=_MINVAL)[..., None]
+    return f
+  if t == T.CYLINDER:
+    def f(s, d):
+      nxy = _norm(d[..., :2])
+      xy = torch.where(
+          (nxy > 1e-12)[..., None],
+          s[..., 0:1] * d[..., :2] / torch.clamp(nxy, min=_MINVAL)[..., None],
+          torch.zeros_like(d[..., :2]))
+      z = torch.where(d[..., 2] >= 0, s[..., 1], -s[..., 1])
+      return torch.cat([xy, z[..., None]], dim=-1)
+    return f
+  if t == T.BOX:
+    return lambda s, d: s * torch.where(d >= 0, 1.0, -1.0).to(d.dtype)
+  raise NotImplementedError(f"support map for geom type {t}")
+
+
+def _closest_surface_local(t: int):
+  """f(size, p_local) -> (surface point, outward normal, signed dist)."""
+  T = GeomType
+  if t == T.SPHERE:
+    def f(s, p):
+      pn = _norm(p)
+      n = p / torch.clamp(pn, min=_MINVAL)[..., None]
+      return s[..., 0:1] * n, n, pn - s[..., 0]
+    return f
+  if t == T.CAPSULE:
+    def f(s, p):
+      seg = torch.minimum(torch.maximum(p[..., 2], -s[..., 1]), s[..., 1])
+      zero = torch.zeros_like(seg)
+      c = torch.stack([zero, zero, seg], dim=-1)
+      d = p - c
+      dn = _norm(d)
+      n = d / torch.clamp(dn, min=_MINVAL)[..., None]
+      return c + s[..., 0:1] * n, n, dn - s[..., 0]
+    return f
+  if t == T.ELLIPSOID:
+    return lambda s, p: _ellipsoid_surface_point(p, s)
+  if t == T.CYLINDER:
+    return lambda s, p: _cylinder_surface_point(p, s[..., 0], s[..., 1])
+  if t == T.BOX:
+    def f(s, p):
+      inside = (p.abs() < s).all(-1)
+      q_out = torch.minimum(torch.maximum(p, -s), s)
+      d_out = p - q_out
+      dn_out = _norm(d_out)
+      n_out = d_out / torch.clamp(dn_out, min=_MINVAL)[..., None]
+      gaps = s - p.abs()
+      k = gaps.argmin(-1)
+      hot = _onehot3(k, p)
+      pk = torch.gather(p, -1, k[..., None])[..., 0]
+      sign = torch.where(pk >= 0, 1.0, -1.0).to(p.dtype)
+      sk = torch.gather(s, -1, k[..., None])[..., 0]
+      q_in = torch.where(hot, (sign * sk)[..., None], p)
+      n_in = torch.where(hot, sign[..., None], torch.zeros_like(p))
+      d_in = -gaps.amin(-1)
+      return (_where3(inside, q_in, q_out), _where3(inside, n_in, n_out),
+              torch.where(inside, d_in, dn_out))
+    return f
+  raise NotImplementedError(f"closest-point map for geom type {t}")
+
+
+def _mpr_penetration(sup_m, v0):
+  """Minkowski Portal Refinement (libccd semantics), batched.
+
+  ``sup_m(d) -> (v, a1, a2)``: the support of the Minkowski difference
+  S2 - S1 in world direction d, with its witness points on S1 and S2. v0
+  [..., 3] is an interior point of the difference (center2 - center1).
+  Portal discovery runs 16 masked iterations, refinement 24 and the
+  normal polish 10, as the reference's. Returns (hit, depth, n, pos): n
+  from geom1 into geom2, pos the mid-penetration point.
+  """
+  eps = 1e-12
+  tiny = v0.new_tensor([1e-8, 0.0, 0.0])
+  # degenerate center overlap: nudge
+  v0 = _where3(_norm(v0) < 1e-10, v0 + tiny, v0)
+
+  v1, a11, a12 = sup_m(-v0)
+  sep1 = _dot(v1, -v0) < 0    # origin beyond the support along -v0
+  d2 = _cross(v1, v0)
+  # origin on the v0-v1 line: perturb the direction deterministically
+  d2 = _where3(_norm(d2) < 1e-12,
+               _cross(v1 + v0.new_tensor([3e-8, 1e-8, 2e-8]), v0), d2)
+  d2 = _where3(_norm(d2) < 1e-12, v0.new_tensor([0.0, 0.0, 1.0]), d2)
+  v2, a21, a22 = sup_m(_unit(d2))
+  sep2 = _dot(v2, _unit(d2)) < 0
+
+  flip = _dot(_cross(v1 - v0, v2 - v0), v0) > 0
+  v1, v2 = _where3(flip, v2, v1), _where3(flip, v1, v2)
+  a11, a21 = _where3(flip, a21, a11), _where3(flip, a11, a21)
+  a12, a22 = _where3(flip, a22, a12), _where3(flip, a12, a22)
+
+  # portal discovery: v3 such that the origin ray pierces (v1, v2, v3)
+  v3 = a31 = a32 = torch.zeros_like(v0)
+  done = torch.zeros(v0.shape[:-1], dtype=torch.bool, device=v0.device)
+  for _ in range(16):
+    v3n, b1, b2 = sup_m(_unit(_cross(v1 - v0, v2 - v0)))
+    v3 = _where3(done, v3, v3n)
+    a31 = _where3(done, a31, b1)
+    a32 = _where3(done, a32, b2)
+    out1 = _dot(_cross(v1, v3), v0) < -eps   # origin outside (v1, 0, v3)
+    out2 = _dot(_cross(v3, v2), v0) < -eps   # origin outside (v3, 0, v2)
+    done = done | (~out1 & ~out2)
+    rep2 = ~done & out1
+    rep1 = ~done & ~out1 & out2
+    v2 = _where3(rep2, v3, v2)
+    a21 = _where3(rep2, a31, a21)
+    a22 = _where3(rep2, a32, a22)
+    v1 = _where3(rep1, v3, v1)
+    a11 = _where3(rep1, a31, a11)
+    a12 = _where3(rep1, a32, a12)
+  found = done
+
+  def portal_normal(v1, v2, v3):
+    n = _unit(_cross(v2 - v1, v3 - v1))
+    # oriented away from v0 (outward through the portal)
+    return _where3(_dot(n, v0) > 0, -n, n)
+
+  # portal refinement (libccd's expand-portal vertex replacement)
+  done = torch.zeros_like(found)
+  for _ in range(24):
+    n = portal_normal(v1, v2, v3)
+    v4, b1, b2 = sup_m(n)
+    done = done | (_dot(v4 - v1, n) < 1e-7)
+    v4v0 = _cross(v4, v0)
+    c1 = _dot(v1, v4v0) > 0
+    c2 = _dot(v2, v4v0) > 0
+    c3 = _dot(v3, v4v0) > 0
+    rep1 = ~done & ((c1 & c2) | (~c1 & ~c3))
+    rep3 = ~done & c1 & ~c2
+    rep2 = ~done & ~c1 & c3
+    v1, a11, a12 = (_where3(rep1, v4, v1), _where3(rep1, b1, a11),
+                    _where3(rep1, b2, a12))
+    v2, a21, a22 = (_where3(rep2, v4, v2), _where3(rep2, b1, a21),
+                    _where3(rep2, b2, a22))
+    v3, a31, a32 = (_where3(rep3, v4, v3), _where3(rep3, b1, a31),
+                    _where3(rep3, b2, a32))
+
+  n = portal_normal(v1, v2, v3)
+  # depth: the support distance along n
+  v4f, _, _ = sup_m(n)
+  depth = _dot(v4f, n)
+  hit = (_dot(v1, n) >= -1e-10) & ~sep1 & ~sep2 & found
+
+  # witness position: barycentric coords of the origin projected onto the
+  # portal plane
+  p = _dot(v1, n)[..., None] * n
+  e1, e2 = v2 - v1, v3 - v1
+  q = p - v1
+  d11, d12, d22 = _dot(e1, e1), _dot(e1, e2), _dot(e2, e2)
+  q1, q2 = _dot(q, e1), _dot(q, e2)
+  det = torch.clamp(d11 * d22 - d12 * d12, min=_MINVAL)
+  l2 = (d22 * q1 - d12 * q2) / det
+  l3 = (d11 * q2 - d12 * q1) / det
+  l1 = 1.0 - l2 - l3
+  lam = torch.clamp(torch.stack([l1, l2, l3], dim=-1), 0.0, 1.0)
+  lam = lam / torch.clamp(lam.sum(-1), min=_MINVAL)[..., None]
+  p_on1 = (lam[..., 0:1] * a11 + lam[..., 1:2] * a21 + lam[..., 2:3] * a31)
+  p_on2 = (lam[..., 0:1] * a12 + lam[..., 1:2] * a22 + lam[..., 2:3] * a32)
+  pos = 0.5 * (p_on1 + p_on2)
+
+  # normal polish: projected gradient descent on the directional depth,
+  # keeping the best iterate (see the reference)
+  eta0 = 1.0 / torch.clamp(_norm(v0), min=_MINVAL)
+  nc, bd, bn, bp = -n, depth, -n, pos
+  for i in range(10):
+    _, x1, x2 = sup_m(-nc)        # x1 = sup1(nc), x2 = sup2(-nc)
+    g = x1 - x2
+    d_dir = _dot(g, nc)
+    better = d_dir < bd
+    bd = torch.where(better, d_dir, bd)
+    bn = _where3(better, nc, bn)
+    bp = _where3(better, 0.5 * (x1 + x2), bp)
+    g_t = g - _dot(g, nc)[..., None] * nc
+    eta = eta0 * (1.5 * 0.7 ** i)
+    nc = _unit(nc - eta[..., None] * g_t)
+  return hit, bd, bn, bp
+
+
+def _alternating_closest(cl1, cl2, p1, m1, s1, p2, m2, s2, iters: int = 12):
+  """Closest points of two disjoint convex geoms by alternating projection
+  onto their surfaces. Returns (dist, pos, n)."""
+  x = p2  # start from geom2's center
+  for _ in range(iters):
+    y = p1 + _mv(m1, cl1(s1, _mtv(m1, x - p1))[0])
+    x = p2 + _mv(m2, cl2(s2, _mtv(m2, y - p2))[0])
+  y = p1 + _mv(m1, cl1(s1, _mtv(m1, x - p1))[0])
+  d = x - y
+  dn = _norm(d)
+  return dn, 0.5 * (x + y), d / torch.clamp(dn, min=_MINVAL)[..., None]
+
+
+def _convex_convex_fn(t1: int, t2: int):
+  """The narrowphase of a generic convex pair: (p1, m1, s1, p2, m2, s2) ->
+  (dist, pos, n)."""
+  sup1, sup2 = _support_local(t1), _support_local(t2)
+  cl1, cl2 = _closest_surface_local(t1), _closest_surface_local(t2)
+
+  def fn(p1, m1, s1, p2, m2, s2):
+    def sup_m(d):
+      x1 = p1 + _mv(m1, sup1(s1, _mtv(m1, -d)))
+      x2 = p2 + _mv(m2, sup2(s2, _mtv(m2, d)))
+      return x2 - x1, x1, x2
+
+    hit, depth, n_pen, pos_pen = _mpr_penetration(sup_m, p2 - p1)
+    d_sep, pos_sep, n_sep = _alternating_closest(
+        cl1, cl2, p1, m1, s1, p2, m2, s2)
+    return (torch.where(hit, -depth, d_sep), _where3(hit, pos_pen, pos_sep),
+            _where3(hit, n_pen, n_sep))
+
+  return fn
+
+
+def _one(fn):
+  """A single-point pair function with the point axis added."""
+  def wrapped(*args):
+    dist, pos, n = fn(*args)
+    return dist[..., None], pos[..., None, :], n[..., None, :]
+  return wrapped
+
+
+def _narrow_fn(t1: int, t2: int):
+  """Uniform signature (p1, m1, s1, p2, m2, s2) -> (dist [..., P],
+  pos [..., P, 3], n [..., P, 3]), the reference's dispatch table."""
+  T = GeomType
+  table = {
+      (T.PLANE, T.SPHERE): _one(
+          lambda p1, m1, s1, p2, m2, s2: _plane_sphere(p1, m1, p2,
+                                                       s2[..., 0])),
+      (T.PLANE, T.CAPSULE): lambda p1, m1, s1, p2, m2, s2: _plane_capsule(
+          p1, m1, p2, m2, s2[..., 0], s2[..., 1]),
+      (T.PLANE, T.ELLIPSOID): _one(
+          lambda p1, m1, s1, p2, m2, s2: _plane_ellipsoid(p1, m1, p2, m2,
+                                                          s2)),
+      (T.PLANE, T.BOX): lambda p1, m1, s1, p2, m2, s2: _plane_box(
+          p1, m1, p2, m2, s2),
+      (T.PLANE, T.CYLINDER): lambda p1, m1, s1, p2, m2, s2: _plane_cylinder(
+          p1, m1, p2, m2, s2[..., 0], s2[..., 1]),
+      (T.SPHERE, T.SPHERE): _one(
+          lambda p1, m1, s1, p2, m2, s2: _sphere_sphere(p1, s1[..., 0], p2,
+                                                        s2[..., 0])),
+      (T.SPHERE, T.CAPSULE): _one(
+          lambda p1, m1, s1, p2, m2, s2: _sphere_capsule(
+              p1, s1[..., 0], p2, m2, s2[..., 0], s2[..., 1])),
+      (T.SPHERE, T.ELLIPSOID): _one(
+          lambda p1, m1, s1, p2, m2, s2: _sphere_ellipsoid(
+              p1, s1[..., 0], p2, m2, s2)),
+      (T.SPHERE, T.BOX): _one(
+          lambda p1, m1, s1, p2, m2, s2: _sphere_box(p1, s1[..., 0], p2, m2,
+                                                     s2)),
+      (T.SPHERE, T.CYLINDER): _one(
+          lambda p1, m1, s1, p2, m2, s2: _sphere_cylinder(
+              p1, s1[..., 0], p2, m2, s2[..., 0], s2[..., 1])),
+      (T.CAPSULE, T.CYLINDER): _one(
+          lambda p1, m1, s1, p2, m2, s2: _capsule_cylinder(
+              p1, m1, s1[..., 0], s1[..., 1], p2, m2, s2[..., 0],
+              s2[..., 1])),
+      (T.CAPSULE, T.CAPSULE): _one(
+          lambda p1, m1, s1, p2, m2, s2: _capsule_capsule(
+              p1, m1, s1[..., 0], s1[..., 1], p2, m2, s2[..., 0],
+              s2[..., 1])),
+      (T.CAPSULE, T.ELLIPSOID): _one(
+          lambda p1, m1, s1, p2, m2, s2: _capsule_ellipsoid(
+              p1, m1, s1[..., 0], s1[..., 1], p2, m2, s2)),
+      (T.CAPSULE, T.BOX): lambda p1, m1, s1, p2, m2, s2: _capsule_box(
+          p1, m1, s1[..., 0], s1[..., 1], p2, m2, s2),
+  }
+  if (t1, t2) in table:
+    return table[(t1, t2)]
+  # generic convex pairs (ellipsoid, cylinder and box cross combinations)
+  return _one(_convex_convex_fn(t1, t2))
 
 
 def narrowphase_all(m: DeviceModel, d: Data, spec: _CollisionSpec):
   """All candidate contact points in slot order: dist [B, C], pos and n
   [B, C, 3]. ``overlay["geom_size"]`` [B, ngeom, 3] replaces the sizes per
-  env."""
+  env. Each type group runs as one batch [B, G] with its points on a last
+  axis; slots are point-major, then pair-major."""
   sizes = d.overlay.get("geom_size")
+  B = d.qpos.shape[0]
   dists, poss, ns = [], [], []
   for g in spec.groups:
     if sizes is None:
-      s1, s2 = g.size1, g.size2                                # [G, 3]
+      s1 = g.size1.expand(B, -1, -1)                           # [B, G, 3]
+      s2 = g.size2.expand(B, -1, -1)
     else:
-      s1, s2 = sizes[:, g.g1], sizes[:, g.g2]                  # [B, G, 3]
-    pts = _narrow(g.types, d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1],
-                  s1, d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], s2)
-    for di, po, nn in pts:
-      dists.append(di)
-      poss.append(po)
-      ns.append(nn)
+      s1, s2 = sizes[:, g.g1], sizes[:, g.g2]
+    di, po, nn = _narrow_fn(*g.types)(
+        d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1], s1,
+        d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], s2)
+    dists.append(di.transpose(1, 2).reshape(B, -1))
+    poss.append(po.transpose(1, 2).reshape(B, -1, 3))
+    ns.append(nn.expand(po.shape).transpose(1, 2).reshape(B, -1, 3))
   return (torch.cat(dists, dim=1), torch.cat(poss, dim=1),
           torch.cat(ns, dim=1))
 

@@ -38,6 +38,7 @@ import torch
 from myosuite_mjx_tpu_torch.engine import data as data_mod
 from myosuite_mjx_tpu_torch.engine import forward as forward_mod
 from myosuite_mjx_tpu_torch.engine import model as model_mod
+from myosuite_mjx_tpu_torch.engine import smooth
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DynType, JointType, TrnType
 from myosuite_mjx_tpu_torch.envs import fatigue
@@ -196,6 +197,20 @@ class MyoEnv:
       self._device_models[device] = model_mod.DeviceModel(
           self.model, self.dtype, device)
     return self._device_models[device]
+
+  def sites_at_qpos0(self) -> np.ndarray:
+    """Every site's world position [nsite, 3] at qpos0, from the port's
+    kinematics in float64 on the CPU (task constants, computed once)."""
+    dm = model_mod.DeviceModel(self.model, torch.float64, "cpu")
+    d = data_mod.make_data(dm, 1, torch.float64, "cpu")
+    kin = smooth.kinematics(dm, torch.as_tensor(self.model.qpos0)[None],
+                            mocap_pos=d.mocap_pos, mocap_quat=d.mocap_quat)
+    return kin["site_xpos"][0].numpy()
+
+  def act_magnitude(self, act: torch.Tensor) -> torch.Tensor:
+    """|act| / na per env (zeros without activations), the act_reg term."""
+    mag = torch.linalg.vector_norm(act, dim=-1)
+    return mag / self.model.na if self.model.na else torch.zeros_like(mag)
 
   def obsdict2obsvec(self, obs_dict: dict) -> torch.Tensor:
     B = obs_dict[self.obs_keys[0]].shape[0]

@@ -22,6 +22,13 @@ below run the same task classes on the synthetic hands of
   per axis). ``far_th``: MyoHand's 0.044 (Fixed) and 0.034 (Random) scaled
   by the fixture's size relative to MyoHand, which is 1: the fixture's
   phalanges have an adult hand's lengths, as MyoHand's do.
+- ``<hand>KeyTurnFixed-v0`` / ``KeyTurnRandom-v0``,
+  ``<hand>ObjHoldFixed-v0`` / ``ObjHoldRandom-v0`` and
+  ``<hand>PenTwirlFixed-v0`` / ``PenTwirlRandom-v0``: the reference's task
+  classes and kwargs (horizons 200, 75 and 50, frame_skip 5 for the pen,
+  the Random key's start range and goal) on the hand-object scenes of
+  ``assets/fixtures.py`` (``<hand>_key.npz``, ``_hold``, ``_pen``), in
+  place of MyoSuite's myohand_keyturn/hold/pen.xml.
 - Variants: ``<hand>Sarc...`` (sarcopenia) and ``<hand>Fati...`` (fatigue)
   of every base id, by the reference's rule (``register_env_variant`` with
   ``muscle_condition``), e.g. ``hand23SarcPoseFixed-v0``. There are no
@@ -30,6 +37,11 @@ below run the same task classes on the synthetic hands of
 """
 from __future__ import annotations
 
+import numpy as np
+
+from myosuite_mjx_tpu_torch.envs.key_turn import KeyTurnEnv
+from myosuite_mjx_tpu_torch.envs.obj_hold import ObjHoldEnv, ObjHoldRandomEnv
+from myosuite_mjx_tpu_torch.envs.pen import PenTwirlFixedEnv, PenTwirlRandomEnv
 from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
 from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
 from myosuite_mjx_tpu_torch.envs.registry import (asset, register,
@@ -73,6 +85,18 @@ for _hand, (_npz, _tips) in HANDS.items():
                        far_th=0.034))
   BASE_IDS += [f"{_hand}{task}-v0"
                for task in ("PoseFixed", "ReachFixed", "ReachRandom")]
+  for _task, _cls, _obj, _steps, _kw in (
+      ("KeyTurnFixed", KeyTurnEnv, "key", 200, {}),
+      ("KeyTurnRandom", KeyTurnEnv, "key", 200,
+       dict(key_init_range=(-np.pi / 2, np.pi / 2), goal_th=2 * np.pi)),
+      ("ObjHoldFixed", ObjHoldEnv, "hold", 75, {}),
+      ("ObjHoldRandom", ObjHoldRandomEnv, "hold", 75, {}),
+      ("PenTwirlFixed", PenTwirlFixedEnv, "pen", 50, dict(frame_skip=5)),
+      ("PenTwirlRandom", PenTwirlRandomEnv, "pen", 50, dict(frame_skip=5))):
+    register(f"{_hand}{_task}-v0", _cls, max_episode_steps=_steps,
+             kwargs=dict(model_path=asset(f"{_hand}_{_obj}.npz"),
+                         normalize_act=True, **_kw))
+    BASE_IDS.append(f"{_hand}{_task}-v0")
 
 # muscle-condition variants (the reference's rule)
 for _id in BASE_IDS:

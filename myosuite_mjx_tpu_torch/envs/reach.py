@@ -65,11 +65,6 @@ class ReachEnv(MyoEnv):
 
   def get_reward_dict(self, obs_dict: dict, data: Data, aux: dict) -> dict:
     reach_dist = torch.linalg.vector_norm(obs_dict["reach_err"], dim=-1)
-    act_mag = torch.linalg.vector_norm(obs_dict["act"], dim=-1)
-    if self.model.na:
-      act_mag = act_mag / self.model.na
-    else:
-      act_mag = torch.zeros_like(reach_dist)
     # the far-threshold grace period: the first two control steps
     far_th = torch.where(data.time > 2 * self.dt,
                          torch.full_like(reach_dist, self.far_th * self.n_tips),
@@ -79,7 +74,7 @@ class ReachEnv(MyoEnv):
     return {
         "reach": -1.0 * reach_dist,
         "bonus": f(reach_dist < 2 * near_th) + f(reach_dist < near_th),
-        "act_reg": -1.0 * act_mag,
+        "act_reg": -1.0 * self.act_magnitude(obs_dict["act"]),
         "penalty": -1.0 * f(reach_dist > far_th),
         "sparse": -1.0 * reach_dist,
         "solved": reach_dist < near_th,

@@ -1,8 +1,10 @@
 """Where the batched env step's time goes, on one CUDA card.
 
     python -m myosuite_mjx_tpu_torch.tools.profile_step [--batch 4096]
+        [--env hand23ObjHoldRandom-v0]
 
-Runs the hand23 pose task (myoHandPoseFixed-v0 kwargs) and prints:
+Runs a task id of the port's registry (default ``hand23PoseFixed-v0``, the
+hand23 pose task with myoHandPoseFixed-v0's kwargs) and prints:
 
 - per engine stage, the host wall time of one call at the batch size,
   between two ``torch.cuda.synchronize()`` (so launch overhead counts),
@@ -22,13 +24,10 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from myosuite_mjx_tpu_torch import envs
 from myosuite_mjx_tpu_torch.engine import collision, constraint, forward
 from myosuite_mjx_tpu_torch.engine import solver
 from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
-from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
-
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 
 
 def _device_us(prof) -> float:
@@ -60,10 +59,11 @@ def main(argv=None) -> None:
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   ap.add_argument("--batch", type=int, default=4096)
   ap.add_argument("--steps", type=int, default=3)
+  ap.add_argument("--env", default="hand23PoseFixed-v0",
+                  help="task id (envs.registry_ids())")
   ap.add_argument("--table", help="file for the full profiler table")
   args = ap.parse_args(argv)
-  env = PoseEnv(os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets",
-                             "hand23.npz"), **HAND_POSE_FIXED)
+  env = envs.make(args.env)
   benv = BatchedEnv(env, args.batch, "cuda", seed=0)
   g = torch.Generator(device="cuda").manual_seed(0)
   act = lambda: torch.rand((args.batch, env.action_dim), generator=g,
@@ -80,7 +80,8 @@ def main(argv=None) -> None:
   efc = constraint.make_efc(m, d_acc, blocks)
   d_con = forward.forward(m, d, full_data=False)
   iters = int(m.opt.solver_iterations), int(m.opt.ls_iterations)
-  print(f"card {torch.cuda.get_device_name(0)}, batch {args.batch}")
+  print(f"card {torch.cuda.get_device_name(0)}, {args.env}, batch "
+        f"{args.batch}, nv {env.model.nv}, frame_skip {env.frame_skip}")
   _stage("fwd_position", lambda: forward.fwd_position(m, d, False))
   _stage("fwd_velocity", lambda: forward.fwd_velocity(m, d_pos))
   _stage("fwd_actuation+passive", lambda: forward.fwd_passive(

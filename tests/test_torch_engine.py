@@ -292,11 +292,21 @@ def test_step_full_data_false_keeps_carry_exact():
 
 
 def test_unported_pair_type_raises():
+  """Heightfield and mesh pairs have no narrowphase in the port: building
+  the layout names the pair."""
   from myosuite_mjx_tpu.engine.model import load_model
-  xml = """<mujoco><worldbody><geom type="plane" size="1 1 .1"/>
-    <body pos="0 0 .1"><joint type="slide" axis="0 0 1"/>
-    <geom type="box" size=".05 .05 .05"/></body></worldbody></mujoco>"""
   from myosuite_mjx_tpu_torch.engine.model import DeviceModel, from_reference
-  dm = DeviceModel(from_reference(load_model(xml)), torch.float64, "cpu")
-  with pytest.raises(NotImplementedError, match="PLANE-BOX"):
-    collision.collision_spec(dm)
+  body = """<body pos="0 0 .1"><joint type="slide" axis="0 0 1"/>{}</body>"""
+  scenes = {
+      "PLANE-MESH": ('<asset><mesh name="tet" vertex="0 0 0 .05 0 0 0 .05 0 '
+                     '0 0 .05"/></asset>', '<geom type="plane" size="1 1 .1"/>',
+                     '<geom type="mesh" mesh="tet"/>'),
+      "HFIELD-SPHERE": ("""<asset><hfield name="h" nrow="3" ncol="3"
+          size="1 1 .1 .1"/></asset>""", '<geom type="hfield" hfield="h"/>',
+                        '<geom type="sphere" size=".05"/>')}
+  for pair, (asset, ground, geom) in scenes.items():
+    xml = (f"<mujoco>{asset}<worldbody>{ground}{body.format(geom)}"
+           "</worldbody></mujoco>")
+    dm = DeviceModel(from_reference(load_model(xml)), torch.float64, "cpu")
+    with pytest.raises(NotImplementedError, match=pair):
+      collision.collision_spec(dm)

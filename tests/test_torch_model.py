@@ -13,8 +13,8 @@ import sys
 import numpy as np
 import pytest
 
-from torch_parity import (FIXTURE_NPZ, HAND_TARGET, NPZ, export_model,
-                          fixture_xml, jax_model)
+from torch_parity import (FIXTURE_NPZ, HAND_TARGET, NPZ, OBJECTS,
+                          export_model, fixture_xml, jax_model)
 from myosuite_mjx_tpu.engine import model as jmodel
 from myosuite_mjx_tpu_torch.engine import api, collision
 from myosuite_mjx_tpu_torch.engine import data as tdata
@@ -45,7 +45,8 @@ def _assert_models_equal(a: tmodel.Model, b: tmodel.Model):
       assert x == y, name
 
 
-@pytest.mark.parametrize("digits", [2, 5, "free"])
+@pytest.mark.parametrize("digits", [2, 5, "free", "prims", *(
+    f"{obj}{d}" for obj in OBJECTS for d in (2, 5))])
 def test_checked_in_npz_equals_fresh_export(digits):
   fresh = export_model(fixture_xml(digits))
   with np.load(FIXTURE_NPZ[digits]) as z:

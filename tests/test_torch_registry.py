@@ -16,8 +16,12 @@ import torch
 from torch_parity import bare_envs_package
 from myosuite_mjx_tpu_torch import envs
 from myosuite_mjx_tpu_torch.envs import myobase, registry
+from myosuite_mjx_tpu_torch.envs.key_turn import KeyTurnEnv
+from myosuite_mjx_tpu_torch.envs.obj_hold import ObjHoldEnv, ObjHoldRandomEnv
+from myosuite_mjx_tpu_torch.envs.pen import PenTwirlFixedEnv, PenTwirlRandomEnv
 from myosuite_mjx_tpu_torch.envs.pose import PoseEnv
 from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
+from myosuite_mjx_tpu_torch.envs.reorient import ReorientEnv
 
 BASE = {"model_path": "x.npz", "frame_skip": 10,
         "target_reach_range": {"THtip": ((0, 0, 0), (1, 1, 1)),
@@ -107,23 +111,69 @@ def test_make_caches_and_overrides(monkeypatch):
     registry.make("nosuch-v0")
 
 
+# task -> (class, horizon, frame_skip, hand23's nv)
+TASKS = {
+    "PoseFixed": (PoseEnv, 100, 10, 23),
+    "ReachFixed": (ReachEnv, 100, 10, 23),
+    "ReachRandom": (ReachEnv, 100, 10, 23),
+    "KeyTurnFixed": (KeyTurnEnv, 200, 10, 24),
+    "KeyTurnRandom": (KeyTurnEnv, 200, 10, 24),
+    "ObjHoldFixed": (ObjHoldEnv, 75, 10, 29),
+    "ObjHoldRandom": (ObjHoldRandomEnv, 75, 10, 29),
+    "PenTwirlFixed": (PenTwirlFixedEnv, 50, 5, 29),
+    "PenTwirlRandom": (PenTwirlRandomEnv, 50, 5, 29),
+    "DieReorientDemo": (ReorientEnv, 150, 5, 29),
+    "DieReorientP1": (ReorientEnv, 150, 5, 29),
+    "DieReorientP2": (ReorientEnv, 150, 5, 29),
+}
+
+
+def _task(env_id: str) -> str:
+  """The task of an id: hand23SarcObjHoldFixed-v0 -> ObjHoldFixed."""
+  task = env_id[6:-3]
+  return task[4:] if task.startswith(("Sarc", "Fati")) else task
+
+
 def test_the_registered_ids():
   ids = envs.registry_ids()
-  bases = [f"{h}{t}-v0" for h in ("hand11", "hand23")
-           for t in ("PoseFixed", "ReachFixed", "ReachRandom")]
+  bases = [f"{h}{t}-v0" for h in ("hand11", "hand23") for t in TASKS
+           if not t.startswith("Die")]
   want = {f"{b[:6]}{c}{b[6:]}" for b in bases for c in ("", "Sarc", "Fati")}
-  assert set(ids) == want and len(ids) == 18
+  # the die reorientation ids take no condition variants (MyoChallenge)
+  want |= {f"{h}{t}-v0" for h in ("hand11", "hand23") for t in TASKS
+           if t.startswith("Die")}
+  assert set(ids) == want and len(ids) == 18 + 36 + 6
   assert not [i for i in ids if "Reaf" in i]
   assert registry.asset("hand23.npz").endswith(
       "myosuite_mjx_tpu_torch/assets/hand23.npz")
   for i in ids:
     cls, kw = registry._REGISTRY[i]
-    assert cls is (PoseEnv if "Pose" in i else ReachEnv), i
-    assert kw["muscle_condition" if ("Sarc" in i or "Fati" in i)
-              else "horizon"] in ("sarcopenia", "fatigue", 100), i
+    assert cls is TASKS[_task(i)][0], i
+    assert kw["horizon"] == TASKS[_task(i)][1], i
+    assert kw.get("frame_skip", 10) == TASKS[_task(i)][2], i
+    if "Sarc" in i or "Fati" in i:
+      assert kw["muscle_condition"] in ("sarcopenia", "fatigue"), i
   for name in ("make", "register", "register_env_variant", "registry_ids",
                "MyoEnv", "BatchedEnv", "EnvState"):
     assert hasattr(envs, name), name
+
+
+def test_the_object_ids_take_the_references_kwargs():
+  _, kw = registry._REGISTRY["hand23KeyTurnRandom-v0"]
+  assert kw["key_init_range"] == (-np.pi / 2, np.pi / 2)
+  assert kw["goal_th"] == 2 * np.pi
+  assert "key_init_range" not in registry._REGISTRY[
+      "hand23KeyTurnFixed-v0"][1]
+  for name, want in (("Demo", dict(pos_th=np.inf, goal_pos=(0, 0),
+                                   goal_rot=(-0.785, 0.785))),
+                     ("P1", dict(goal_pos=(-0.010, 0.010),
+                                 goal_rot=(-1.57, 1.57))),
+                     ("P2", dict(goal_pos=(-0.020, 0.020),
+                                 goal_rot=(-3.14, 3.14)))):
+    _, kw = registry._REGISTRY[f"hand11DieReorient{name}-v0"]
+    for k, v in want.items():
+      assert kw[k] == v, (name, k)
+    assert kw["model_path"].endswith("hand11_die.npz")
 
 
 def test_reach_targets_and_thresholds():
@@ -143,9 +193,9 @@ def test_reach_targets_and_thresholds():
     registry._REGISTRY) if i.startswith(("hand11", "hand23"))])
 def test_every_id_constructs_and_hand11_ids_step(env_id):
   env = envs.make(env_id, cache=False, dtype=torch.float64)
-  assert env.horizon == 100
+  assert env.horizon == TASKS[_task(env_id)][1]
   if env_id.startswith("hand23"):
-    assert env.model.nv == 23
+    assert env.model.nv == TASKS[_task(env_id)][3]
     return
   g = torch.Generator().manual_seed(0)
   st = env.reset(2, "cpu", g)

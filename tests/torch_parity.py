@@ -36,6 +36,7 @@ torch.set_num_threads(1)
 
 from myosuite_mjx_tpu.engine import data as jdata  # noqa: E402
 from myosuite_mjx_tpu.engine import model as jmodel  # noqa: E402
+from myosuite_mjx_tpu_torch.assets import fixtures  # noqa: E402
 from myosuite_mjx_tpu_torch.assets.fixtures import (  # noqa: E402
     free_fixture_xml, hand_fixture_xml)
 from myosuite_mjx_tpu_torch.engine import data as tdata  # noqa: E402
@@ -47,13 +48,29 @@ NPZ = {2: os.path.join(ASSETS, "hand11.npz"), 5: os.path.join(ASSETS,
                                                               "hand23.npz")}
 # the ball/free/mocap scene
 FREE_NPZ = os.path.join(ASSETS, "free10.npz")
-# every checked-in fixture: the hands by digit count, and "free"
-FIXTURE_NPZ = {**NPZ, "free": FREE_NPZ}
+# the primitive-pairs scene
+PRIMS_NPZ = os.path.join(ASSETS, "prims36.npz")
+# the hand-object scenes by object, then digit count: hand11_key.npz ...
+OBJECTS = ("key", "hold", "pen", "die")
+OBJECT_NPZ = {(obj, digits): os.path.join(
+    ASSETS, f"hand{11 if digits == 2 else 23}_{obj}.npz")
+              for obj in OBJECTS for digits in (2, 5)}
+# every checked-in fixture: the hands by digit count, "free", "prims" and
+# the object scenes as "<object><digits>" (e.g. "key2")
+FIXTURE_NPZ = {**NPZ, "free": FREE_NPZ, "prims": PRIMS_NPZ,
+               **{f"{obj}{digits}": path
+                  for (obj, digits), path in OBJECT_NPZ.items()}}
 
 
 def fixture_xml(key) -> str:
   """The MJCF text of a ``FIXTURE_NPZ`` key."""
-  return free_fixture_xml() if key == "free" else hand_fixture_xml(key)
+  if key == "free":
+    return free_fixture_xml()
+  if key == "prims":
+    return fixtures.prims_fixture_xml()
+  if isinstance(key, str):
+    return getattr(fixtures, f"{key[:-1]}_fixture_xml")(int(key[-1]))
+  return hand_fixture_xml(key)
 
 # myoHandPoseFixed-v0's target joint values (MyoHand joint order)
 HAND_TARGET = HAND_POSE_FIXED["target_jnt_value"]
@@ -189,11 +206,107 @@ def jax_pose_env():
     yield PoseEnv
 
 
+# ---------------------------------------------------------------------------
+# task parity: a JAX task class and the port's on the same MJCF
+# ---------------------------------------------------------------------------
+
+# obs, reward and every reward key after a reset and autoreset steps:
+# Newton on stiff contact rows amplifies rounding
+TASK_TOL = dict(rtol=1e-8, atol=1e-9)
+
+
+def task_kwargs(env_id: str, **overrides) -> dict:
+  """A registered id's kwargs without its model path, with overrides."""
+  from myosuite_mjx_tpu_torch.envs import registry
+  kw = dict(registry._REGISTRY[env_id][1], **overrides)
+  kw.pop("model_path")
+  return kw
+
+
+def reset_keys(state_rng):
+  """The key each env's fresh reset inside ``autoreset_step`` gets."""
+  return jax.vmap(lambda r: jax.random.split(r)[1])(state_rng)
+
+
+def reset_split(keys):
+  """(k_aux, k_state) of JAX's ``reset`` for each env key."""
+  ks = jax.vmap(lambda k: jax.random.split(k, 4))(keys)
+  return ks[:, 1], ks[:, 2]
+
+
+class QueuedDraws:
+  """Mixin for a port task whose draw hooks return ``self.next_draw(hook,
+  device)``: the next entry of ``self.draws[hook]``, JAX's draws queued
+  by the test (a tuple of arrays for a hook that returns several)."""
+  HOOKS: tuple = ()
+
+  def __init__(self, *args, **kwargs):
+    self.draws = {h: [] for h in self.HOOKS}
+    super().__init__(*args, **kwargs)
+
+  def next_draw(self, hook: str, device):
+    out = self.draws[hook].pop(0)
+    if isinstance(out, tuple):
+      return tuple(torch.as_tensor(np.array(x), device=device) for x in out)
+    return torch.as_tensor(np.array(out), device=device)
+
+
+def compare_task_states(jenv, jst, penv, pst, what: str):
+  """obs, reward, done, info and every reward key of a batched JAX state
+  against the port's."""
+  assert_close(pst.obs, jst.obs, what=f"{what} obs", **TASK_TOL)
+  assert_close(pst.reward, jst.reward, what=f"{what} reward", **TASK_TOL)
+  np.testing.assert_array_equal(to_np(pst.done), to_np(jst.done))
+  jr = jax.vmap(lambda d, aux: jenv.get_reward_dict(
+      jenv.get_obs_dict(d, aux), d, aux))(jst.data, jst.aux)
+  pr = penv.get_reward_dict(penv.get_obs_dict(pst.data, pst.aux), pst.data,
+                            pst.aux)
+  assert sorted(pr) == sorted(jr)
+  for k in jr:
+    if k in ("solved", "done"):
+      np.testing.assert_array_equal(to_np(pr[k]), to_np(jr[k]), err_msg=k)
+    else:
+      assert_close(pr[k], jr[k], what=f"{what} {k}", **TASK_TOL)
+  for k, v in jst.info.items():
+    assert_close(pst.info[k], v, what=f"{what} info {k}", **TASK_TOL)
+  assert sorted(pst.aux) == sorted(jst.aux)
+  for k, v in jst.aux.items():
+    assert_close(pst.aux[k], v, what=f"{what} aux {k}", **TASK_TOL)
+
+
+def task_rollout(jenv, penv, queue_draws, batch: int, steps: int,
+                 seed: int = 0):
+  """Reset and ``steps`` autoreset steps of ``batch`` envs in both
+  packages with the same actions, comparing after each; JAX's draws go to
+  the port through ``queue_draws(keys)``, called with the env keys of each
+  reset before the port draws. Returns the count of episode ends."""
+  assert penv.obs_keys == jenv.obs_keys
+  assert penv.rwd_keys_wt == jenv.rwd_keys_wt
+  actions = np.random.default_rng(seed).uniform(
+      -0.2, 1.2, (steps, batch, penv.action_dim))
+  keys = jax.random.split(jax.random.PRNGKey(seed), batch)
+  jst = jax.jit(jax.vmap(jenv.reset))(keys)
+  queue_draws(keys)
+  pst = penv.reset(batch, "cpu")
+  compare_task_states(jenv, jst, penv, pst, "reset")
+  jstep = jax.jit(jax.vmap(jenv.autoreset_step))
+  ends = 0
+  for t in range(steps):
+    queue_draws(reset_keys(jst.rng))
+    jst = jstep(jst, jnp.asarray(actions[t]))
+    pst = penv.autoreset_step(pst, torch.as_tensor(actions[t]))
+    compare_task_states(jenv, jst, penv, pst, f"step {t}")
+    ends += int(to_np(pst.info["terminated"] | pst.info["truncated"]).sum())
+  assert not any(penv.draws.values()), "draws left in the queue"
+  return jst, pst, ends
+
+
 def main(argv=None) -> None:
   ap = argparse.ArgumentParser(description="Write the port's fixture models.")
   ap.add_argument("--export", action="store_true",
-                  help="compile hand11, hand23 and free10 and write their "
-                       ".npz files")
+                  help="compile every fixture (hand11, hand23, free10, "
+                       "prims36 and the hand-object scenes) and write its "
+                       ".npz file")
   ap.add_argument("--out-dir", default=os.path.normpath(ASSETS))
   args = ap.parse_args(argv)
   if not args.export:

@@ -114,10 +114,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``hand23ObjHoldRandom-v0`` at the proof recipe's width for 6
    iterations, failing unless the metrics are finite and the nets move.
 
-Every [B, n] at which phases 4-13 launch the kernel must be among those
-phase 3 checked. Phase 13's CPU runs at B = 16 are computed in one worker
-process (``cpu_references``), started after phase 2 and joined at the
-end, while the card runs phases 3-12.
+14. heightfield contacts, sensors and the leg tasks: (a) the hfield-sphere
+   and hfield-capsule pairs at B = 4096 over a seeded 100 x 100 field,
+   separated, shallow, deep and on a cell corner, the card's float32
+   against the port's float64 on the CPU (13a's bounds; a lane on a cell
+   boundary may take the neighbouring cell in float32, and flips are held
+   to the CPU float32's share); (b) the plate scene of the sensor tests
+   through ``Physics``: at rest its force sensor carries the plate's and
+   the ball's weight within 1%; (c) ``legs80StandRandom``, ``Walk``,
+   ``RoughTerrainWalk``, ``StairTerrainWalk`` and ``ChaseTagP2`` through
+   ``envs.make``: 16 envs for 5 control steps against the CPU with the
+   same draws; (d) each at B = 4096 for 20 control steps with every
+   episode clock crossing its horizon, printing physics-steps/s, the
+   ratio to phase 4, ms per control step, SPD launches, active contacts,
+   the share of envs with a foot on the ground, the contacts the top-k
+   cull dropped and the four foot sensors' force against the body weight
+   on the median env, failing on a non-finite output, a pelvis below the
+   floor or the terrain, no foot contact, or an env that did not
+   autoreset; (e) ``tools/profile_step.py`` on ``legs80Walk-v0``, once.
+
+Every [B, n] at which phases 4-14 launch the kernel must be among those
+phase 3 checked. Phases 13 and 14's CPU runs at B = 16 are computed in
+one worker process (``cpu_references``), started after phase 2 and
+joined at phase 13, while the card runs phases 3-12.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -150,9 +169,9 @@ HAND23 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "hand23.npz")
 FREE10 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "free10.npz")
 # the kernel is built for these padded sizes: cover each and its ends, and
 # n = 1; 10 is free10's nv (phase 12), 24 and 29 the hand-object scenes'
-# and 36 prims36's (phase 13)
+# and 36 prims36's (phase 13), 22 the legs' and 7 the plate's (phase 14)
 PADDED_SIZES = (8, 16, 24, 32, 64)
-SIZES = (1, 4, 8, 10, 11, 16, 17, 23, 24, 29, 32, 33, 36, 64)
+SIZES = (1, 4, 7, 8, 10, 11, 16, 17, 22, 23, 24, 29, 32, 33, 36, 64)
 # the batches the paths launch the kernel at: the card side of phases 5 and
 # 7, the NPG eval, the PPO rollout, the NPG rollout and the main path
 PATH_BATCHES = (16, 32, 128, 512, B_MAIN)
@@ -295,6 +314,43 @@ MANIP_STEPS = 20
 # 13d: the CLI's SAC at the proof recipe's width on the hold task
 MANIP_TRAIN_ENV = "hand23ObjHoldRandom-v0"
 MANIP_SAC_ITERS = 6
+# phase 14: heightfield contacts, sensors and the leg tasks.
+# 14a: the hfield-sphere and hfield-capsule pairs at B_MAIN over a seeded
+# HFIELD_GRID field (rubble: heights up to 5 cm over 2 cm cells of a 2 m x
+# 2 m field, near the origin as 13a's poses are), sizes 1-4 cm,
+# a quarter each separated, shallow, deep and centred on a cell corner;
+# the card's float32 against the port's float64 on the CPU with 13a's
+# median bounds and flip rule: on a cell boundary float32 can take the
+# neighbouring cell, whose slope sets another normal
+HFIELD_GRID = (100, 100)
+HFIELD_SIZE = (1.0, 1.0, 0.05)
+# 14b: the plate scene's force sensor at rest after PLATE_STEPS substeps
+# carries the plate's and the ball's weight within PLATE_BOUND
+PLATE = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "plate.npz")
+PLATE_STEPS = 1500
+PLATE_BOUND = 0.01
+PLATE_REST = 1e-2
+PLATE_WEIGHT = (0.5 + 0.2) * 9.81
+# 14c-d: the leg tasks on legs80 (80 muscles, MyoLeg's width), each at
+# B = 16 for 5 control steps on the card and the CPU with the same draws,
+# then B_MAIN envs for LEG_STEPS control steps with every episode clock
+# set to cross its horizon inside the window. 14c holds the median env to
+# the larger of phase 5's bound and FLOAT32_MARGIN times the CPU float32
+# run's median env (feet on rubble amplify float32 rounding: that median
+# alone reaches 1.4e-4 in qpos on the rough terrain, against phase 5's
+# 1e-4). An env past that bound "flips", as a lane does in 13a: a foot on
+# a cell boundary or a stair edge can take another cell in float32, and
+# the standing legs' contacts then part ways (worst envs 1.5e-4 to 4.9e-2
+# in qpos over calls, CPU float32 1.5e-4 to 3.2e-2). The card may flip
+# no more envs than the CPU float32 run plus LEG_FLIP_SLACK (two of 16)
+LEG_TASKS = ("legs80StandRandom-v0", "legs80Walk-v0",
+             "legs80RoughTerrainWalk-v0", "legs80StairTerrainWalk-v0",
+             "legs80ChaseTagP2-v0")
+LEG_STEPS = 20
+LEG_FLIP_SLACK = 0.125
+LEG_SENSORS = ("r_foot", "r_toes", "l_foot", "l_toes")
+# 14e: tools/profile_step.py on this task, once
+PROFILE_ENV = "legs80Walk-v0"
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1540,7 +1596,7 @@ def phase_pairs() -> dict:
   from myosuite_mjx_tpu_torch.engine.model import GeomType as T
   keys = tuple(PAIR_FLIP)
   worst = {k: 0.0 for k in keys}
-  for types in sorted(collision.PORTED):
+  for types in sorted(collision.PRIMITIVE):
     cases = _pair_cases(*types, B_MAIN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1575,7 +1631,8 @@ def phase_pairs() -> dict:
       raise AssertionError(f"pair {name}: card and CPU disagree, or "
                            f"non-finite")
     worst = {k: max(worst[k], med[k]) for k in keys}
-  _say(f"pairs: worst median lane over the {len(collision.PORTED)} types "
+  n_types = len(collision.PRIMITIVE)
+  _say(f"pairs: worst median lane over the {n_types} types "
        + ", ".join(f"{k} {v:.2e} (bound {PAIR_MEDIAN_BOUND[k]:g})"
                    for k, v in worst.items()))
   return {}
@@ -1621,12 +1678,12 @@ def _task_b16(task_id: str, device, dtype) -> dict:
 
 
 def cpu_references() -> dict:
-  """Phase 13's CPU side (13b's float64 run, 13c's float64 and float32
-  runs). ``main`` computes it in a worker process while the card runs
-  the earlier phases."""
+  """Phases 13 and 14's CPU side (13b's float64 run, 13c's and 14c's
+  float64 and float32 runs). ``main`` computes it in a worker process
+  while the card runs the earlier phases."""
   torch.set_num_threads(2)
   out = {"prims": _prims_b16("cpu", torch.float64)}
-  for task_id in MANIP_TASKS:
+  for task_id in MANIP_TASKS + LEG_TASKS:
     for dtype in (torch.float64, torch.float32):
       out[task_id, dtype] = _task_b16(task_id, "cpu", dtype)
   return out
@@ -1860,6 +1917,306 @@ def phase_contact_tasks(phase4_rate: float, cpu_refs=None) -> dict:
   return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: heightfield contacts, sensors and the leg tasks
+# ---------------------------------------------------------------------------
+
+
+def _hfield_cases(t2: int, n: int, seed: int = 0):
+  """(heights [N], field pos, field frame, geom pos, frame, size) as
+  float64 numpy over ``n`` lanes: a quarter each separated, shallow, deep
+  and centred on a cell corner, over a seeded HFIELD_GRID field turned
+  about z."""
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  rng = np.random.default_rng(seed)
+  nrow, ncol = HFIELD_GRID
+  sx, sy, sz = HFIELD_SIZE
+  heights = rng.uniform(0.0, 1.0, nrow * ncol)
+  yaw = 0.7
+  fmat = np.array([[np.cos(yaw), -np.sin(yaw), 0.0],
+                   [np.sin(yaw), np.cos(yaw), 0.0], [0.0, 0.0, 1.0]])
+  fpos = np.array([0.1, -0.2, 0.05])
+  k = n // 4
+  lx = rng.uniform(-sx, sx, n)
+  ly = rng.uniform(-sy, sy, n)
+  lx[3 * k:] = -sx + rng.integers(0, ncol, n - 3 * k) * 2 * sx / (ncol - 1)
+  ly[3 * k:] = -sy + rng.integers(0, nrow, n - 3 * k) * 2 * sy / (nrow - 1)
+  size = np.zeros((n, 3))
+  size[:, 0] = rng.uniform(0.01, 0.04, n)
+  if t2 == T.CAPSULE:
+    size[:, 1] = rng.uniform(0.01, 0.04, n)
+  lift = np.concatenate([rng.uniform(1.2, 2.0, k), rng.uniform(0.7, 1.0, k),
+                         rng.uniform(-0.5, 0.3, k),
+                         rng.uniform(-0.5, 1.5, n - 3 * k)])
+  # the lift is over the field's bilinear height at the geom's centre
+  gx = np.clip((lx + sx) / (2 * sx) * (ncol - 1), 0, ncol - 1.001)
+  gy = np.clip((ly + sy) / (2 * sy) * (nrow - 1), 0, nrow - 1.001)
+  c0, r0 = np.floor(gx).astype(int), np.floor(gy).astype(int)
+  fx, fy = gx - c0, gy - r0
+  h = heights.reshape(nrow, ncol)
+  under = ((1 - fy) * ((1 - fx) * h[r0, c0] + fx * h[r0, c0 + 1])
+           + fy * ((1 - fx) * h[r0 + 1, c0] + fx * h[r0 + 1, c0 + 1])) * sz
+  local = np.stack([lx, ly, under + lift * size[:, 0]], -1)
+  gpos = fpos + local @ fmat.T
+  return (heights, np.broadcast_to(fpos, (n, 3)),
+          np.broadcast_to(fmat, (n, 3, 3)), gpos, _rotations(rng, n), size)
+
+
+def _hfield_narrow(t2: int, cases, device, dtype):
+  from myosuite_mjx_tpu_torch.engine import collision
+  heights, *rest = [torch.as_tensor(np.array(a), dtype=dtype, device=device)
+                    for a in cases]
+  field = collision._HField(adr=0, nrow=HFIELD_GRID[0], ncol=HFIELD_GRID[1],
+                            size=HFIELD_SIZE, heights=heights)
+  fpos, fmat, gpos, gmat, size = rest
+  dist, pos, n = collision._hfield_fn(t2, heights, field)(
+      fpos, fmat, torch.zeros_like(size), gpos, gmat, size)
+  return [x.double().cpu().numpy() for x in (dist, pos, n.expand(pos.shape))]
+
+
+def phase_hfield_pairs() -> dict:
+  """14a: the heightfield pairs at B_MAIN, card float32 against CPU
+  float64 (13a's bounds and flip rule)."""
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  keys = tuple(PAIR_FLIP)
+  for t2 in (T.SPHERE, T.CAPSULE):
+    cases = _hfield_cases(t2, B_MAIN, seed=int(t2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = _hfield_narrow(t2, cases, DEVICE, torch.float32)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = _hfield_narrow(t2, cases, "cpu", torch.float64)
+    cpu32 = _hfield_narrow(t2, cases, "cpu", torch.float32)
+
+    def lane_errs(out):
+      return {k: np.abs((a - b).reshape(B_MAIN, -1)).max(-1)
+              for k, a, b in zip(keys, out, ref)}
+
+    def flipped(e):
+      return np.any([e[k] > PAIR_FLIP[k] for k in keys], 0)
+
+    e, e32 = lane_errs(card), lane_errs(cpu32)
+    med = {k: float(np.median(e[k])) for k in keys}
+    flips, flips32 = flipped(e), flipped(e32)
+    corner = slice(3 * (B_MAIN // 4), None)
+    finite = all(np.isfinite(x).all() for x in card)
+    good = (finite and flips.mean() <= flips32.mean() + PAIR_FLIP_SLACK
+            and all(med[k] <= PAIR_MEDIAN_BOUND[k] for k in keys))
+    _say(f"hfield pairs HFIELD-{T(t2).name} B={B_MAIN} x "
+         f"{card[0].shape[-1]} points over a {HFIELD_GRID[0]} x "
+         f"{HFIELD_GRID[1]} field, card float32 vs cpu float64: median "
+         "lane " + ", ".join(f"{k} {med[k]:.2e}" for k in keys)
+         + "; max " + ", ".join(f"{k} {float(e[k].max()):.2e}" for k in keys)
+         + f"; flipped lanes {flips.mean():.4f} (cpu float32 "
+         f"{flips32.mean():.4f}; on the cell-corner quarter "
+         f"{flips[corner].mean():.4f}, elsewhere "
+         f"{flips[:corner.start].mean():.4f}); touching lanes "
+         f"{int((ref[0].min(-1) < 0).sum())}; {ms:.1f} ms "
+         f"{'ok' if good else 'FAIL'}")
+    if not good:
+      raise AssertionError(f"hfield pair {T(t2).name}: card and CPU "
+                           f"disagree, or non-finite")
+  return {}
+
+
+def phase_plate() -> dict:
+  """14b: the force sensor at rest on the card (the sensor tests'
+  static-weight anchor)."""
+  from myosuite_mjx_tpu_torch.engine import api, sensors
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  phys = api.load(PLATE, torch.float32, DEVICE)
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  t0 = time.perf_counter()
+  advance = phys.step_n(10)
+  d = phys.make_data(1)
+  for _ in range(PLATE_STEPS // 10):
+    d = advance(d)
+  d = phys.forward(d)
+  m = phys.model
+  site = int(m.sensor_objid[m.name2id("sensor", "plate_load")])
+  got = sensors.force_sensor(phys.device_model, d, site)[0].double().cpu()
+  seconds = time.perf_counter() - t0
+  err = abs(float(got.norm()) - PLATE_WEIGHT) / PLATE_WEIGHT
+  # at rest: the plate's tilt rate and the ball's linear velocity (the
+  # ball may spin in place: condim 3 has no rolling friction)
+  rest = float(d.qvel[:, :4].abs().max())
+  spin = float(d.qvel[:, 4:].abs().max())
+  ok = (err <= PLATE_BOUND and rest < PLATE_REST
+        and bool(torch.isfinite(got).all()))
+  _say(f"plate force sensor after {PLATE_STEPS} substeps on the card: "
+       f"{got.numpy().round(4).tolist()} N in the site frame, |F| "
+       f"{float(got.norm()):.4f} against the weight {PLATE_WEIGHT:.4f} "
+       f"(rel err {err:.2e}, bound {PLATE_BOUND:g}); largest tilt rate and "
+       f"ball speed {rest:.2e} (bound {PLATE_REST:g}), ball spin {spin:.2e};"
+       f" {seconds:.1f} s; spd_solve launches "
+       f"{cuda_linalg.spd_solve_cuda.launches} {'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("the plate's force sensor misses its weight, or "
+                         "the scene did not come to rest")
+  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+
+
+def _terrain_height(env, d) -> torch.Tensor:
+  """The terrain's height [B] under each pelvis (world z), from the env's
+  heights (its overlay, or the model's)."""
+  from myosuite_mjx_tpu_torch.engine import collision
+  m = env.model
+  tid = m.name2id("geom", "terrain")
+  dm = env.device_model(d.qpos.device)
+  field = collision._hfield(dm, int(m.geom_dataid[tid]))
+  heights = d.overlay.get("hfield_data")
+  heights = field.heights if heights is None else heights[
+      :, field.adr:field.adr + field.nrow * field.ncol]
+  gpos, gmat = d.geom_xpos[:, tid], d.geom_xmat[:, tid]
+  pel = d.xpos[:, m.name2id("body", "pelvis")]
+  local = collision._mtv(gmat, pel - gpos)
+  h, _ = collision._hfield_height_normal(local[:, :2], heights, field.size,
+                                         field.nrow, field.ncol)
+  return gpos[:, 2] + h
+
+
+def phase_leg_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
+  """14c-d: the leg tasks through ``envs.make``; ``refs`` is
+  ``cpu_references()`` (computed here without it)."""
+  from myosuite_mjx_tpu_torch.engine import sensors
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  out = {}
+  for task_id in LEG_TASKS:
+    card = _task_b16(task_id, DEVICE, torch.float32)
+    if refs:
+      ref, cpu32 = refs[task_id, torch.float64], refs[task_id, torch.float32]
+    else:
+      ref = _task_b16(task_id, "cpu", torch.float64)
+      cpu32 = _task_b16(task_id, "cpu", torch.float32)
+    for f, bound in CARD_CPU_BOUND.items():
+      err = np.abs(card[f] - ref[f]).max(-1)
+      err32 = np.abs(cpu32[f] - ref[f]).max(-1)
+      median_bound = max(bound, FLOAT32_MARGIN * float(np.median(err32)))
+      median = float(np.median(err))
+      flips, flips32 = (err > median_bound).mean(), (err32 > median_bound
+                                                     ).mean()
+      ok = (median <= median_bound and flips <= flips32 + LEG_FLIP_SLACK
+            and np.isfinite(card[f]).all())
+      _say(f"legs {task_id} B=16: card float32 vs cpu float64 after 5 "
+           f"steps, {f}: median env {median:.3e} (bound "
+           f"{median_bound:.3g}; cpu float32 {float(np.median(err32)):.3e}"
+           f"); envs past it {flips:.4f} (cpu float32 {flips32:.4f}, slack "
+           f"{LEG_FLIP_SLACK:g}); worst env {float(err.max()):.3e} (cpu "
+           f"float32 {float(err32.max()):.3e}) {'ok' if ok else 'FAIL'}")
+      if not ok:
+        raise AssertionError(f"{task_id}: card and CPU disagree on {f}")
+
+    env = _task_env(task_id)
+    m = env.model
+    dm = env.device_model(DEVICE)
+    pelvis = m.name2id("body", "pelvis")
+    sites = [int(m.sensor_objid[m.name2id("sensor", n)])
+             for n in LEG_SENSORS]
+    # the body's weight (a mocap opponent carries none)
+    weight = float(np.sum(m.body_mass[np.asarray(m.body_mocapid) < 0])
+                   * -m.opt.gravity[2])
+    benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    cuda_linalg.spd_solve_cuda.launches = 0
+    st = benv.init()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    # every clock crosses the horizon once inside the window
+    st = st.replace(steps=env.horizon - torch.randint(
+        1, LEG_STEPS + 1, (B_MAIN,), generator=g, device=DEVICE,
+        dtype=torch.int32))
+    restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    grounded = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    margin = torch.full((), np.inf, device=DEVICE)
+    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    t0 = None
+    for i in range(LEG_STEPS):
+      if i == WARMUP:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      action = torch.rand((B_MAIN, env.action_dim), generator=g,
+                          device=DEVICE)
+      st = benv.step(st, action)
+      restarted |= st.info["terminated"] | st.info["truncated"]
+      grounded |= (st.data.contact.dist < 0).any(-1)
+      pz = st.data.xpos[:, pelvis, 2]
+      margin = torch.minimum(margin, torch.minimum(
+          pz, pz - _terrain_height(env, st.data)).min())
+      dropped += st.data.ncon_dropped.sum()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    timed = LEG_STEPS - WARMUP
+    rate = timed * B_MAIN * env.frame_skip / seconds
+    launches = cuda_linalg.spd_solve_cuda.launches
+    c = st.data.contact
+    active = (c.dist < 0).sum(-1).float()
+    grf = sum(sensors.touch_sensor(dm, st.data, s) for s in sites)
+    on_ground = (c.dist < 0).any(-1)
+    margin = float(margin)
+    _say(f"legs {task_id} B={B_MAIN} (nv {m.nv}, nu {m.nu}, frame_skip "
+         f"{env.frame_skip}, horizon {env.horizon}): {LEG_STEPS} control "
+         f"steps, {timed} timed in {seconds:.3f} s: {rate:.1f} "
+         f"physics-steps/s, {rate / phase4_rate:.3f} of phase 4's "
+         f"{phase4_rate:.1f}, {seconds / timed * 1e3:.1f} ms per control "
+         f"step; spd_solve launches {launches} "
+         f"({launches / LEG_STEPS:.1f} per control step); active contacts "
+         f"per env at the end {float(active.mean()):.3f}; envs with a foot "
+         f"on the ground {float(on_ground.float().mean()):.4f} at the end, "
+         f"{float(grounded.float().mean()):.4f} at some step; dropped "
+         f"{int(dropped)} in all ({int(dropped) / (LEG_STEPS * B_MAIN):.4f} "
+         f"per env and step); GRF of the four foot sensors, median env "
+         f"{float(grf.median()):.1f} N against the body weight "
+         f"{weight:.1f} N ({float(grf.median()) / weight:.3f}); lowest "
+         f"pelvis over the floor and the terrain {margin:.4f} m; autoreset "
+         f"{int(restarted.sum())} of {B_MAIN} envs")
+    for what, x in (("obs", st.obs), ("reward", st.reward),
+                    ("qpos", st.data.qpos)):
+      if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{task_id}: non-finite {what} at B={B_MAIN}")
+    if not margin > 0.0:
+      raise AssertionError(f"{task_id}: a pelvis went below the terrain")
+    if not bool(grounded.any()):
+      raise AssertionError(f"{task_id}: no foot touched the ground")
+    if not bool(restarted.all()) or bool((st.steps >= env.horizon).any()):
+      raise AssertionError(f"{task_id}: an env did not autoreset at its "
+                           f"horizon")
+    if launches <= 0:
+      raise AssertionError(f"{task_id} never launched the SPD kernel")
+    out[f"phase14_{task_id}_launches"] = launches
+  out["launches"] = sum(out.values())
+  return out
+
+
+def phase_leg_profile() -> dict:
+  """14e: ``tools/profile_step.py`` on PROFILE_ENV, in process."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.tools import profile_step
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  profile_step.main(["--env", PROFILE_ENV, "--steps", "1"])
+  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+
+
+def phase_legs(phase4_rate: float, cpu_refs=None) -> dict:
+  """Phase 14: 14a-14e, each timed; ``cpu_refs`` is a future of
+  ``cpu_references()``."""
+  refs = cpu_refs.result() if cpu_refs is not None else None
+  out = {}
+  for part, fn, args in (("14a", phase_hfield_pairs, ()),
+                         ("14b", phase_plate, ()),
+                         ("14cd", phase_leg_tasks, (phase4_rate, refs)),
+                         ("14e", phase_leg_profile, ())):
+    t0 = time.perf_counter()
+    res = fn(*args)
+    _say(f"phase {part}: {time.perf_counter() - t0:.1f} s")
+    if "launches" in res:
+      out[f"phase{part}_launches"] = res.pop("launches")
+    out.update(res)
+  return out
+
+
 @contextlib.contextmanager
 def _launch_shapes(shapes: set):
   """Record the [B, n] of every ``linalg.spd_solve`` call on the card made
@@ -1914,8 +2271,10 @@ def _main_phases(smi: str, cpu_refs) -> int:
     physics = _timed_phase(12, phase_physics)
     contact = _timed_phase(13, phase_contact_tasks,
                            main_path["physics_steps_per_s"], cpu_refs)
+    legs = _timed_phase(14, phase_legs, main_path["physics_steps_per_s"],
+                        cpu_refs)
   unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
-  _say(f"spd_solve shapes launched in phases 4-13: {sorted(shapes)}; not "
+  _say(f"spd_solve shapes launched in phases 4-14: {sorted(shapes)}; not "
        f"held against the plain version in phase 3: {sorted(unchecked)}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
@@ -1927,7 +2286,7 @@ def _main_phases(smi: str, cpu_refs) -> int:
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
       "launches": main_path["launches"], **train, **sac, **conditions,
       **cli_run, **proof, "physics_launches": physics["physics_launches"],
-      **contact, **kernel}]}))
+      **contact, **legs, **kernel}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

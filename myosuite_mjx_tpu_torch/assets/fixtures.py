@@ -476,3 +476,308 @@ def prims_fixture_xml() -> str:
   </worldbody>
 </mujoco>
 """
+
+
+# ---------------------------------------------------------------------------
+# the two-leg scene (MyoLeg's joint names and width)
+#
+# Body frames follow the pelvis: x forward, y to the left, z up; the
+# standing pelvis is yawed a quarter turn, so that it faces world +y, as
+# MyoLeg's does. Hip at (0, +-0.085, -0.05) under the pelvis, femur 0.42 m,
+# tibia 0.40 m, talus 0.04 m; every foot geom's lowest point lies 0.05 m
+# under the calcaneus, so the standing pelvis is at 0.96 m.
+# ---------------------------------------------------------------------------
+
+_LEG_HIP = (0.0, 0.085, -0.05)
+_FEMUR_LEN = 0.42
+_TIBIA_LEN = 0.40
+_TALUS_LEN = 0.04
+_FOOT_DEPTH = 0.05
+_PELVIS_HEIGHT = (-_LEG_HIP[2] + _FEMUR_LEN + _TIBIA_LEN + _TALUS_LEN
+                  + _FOOT_DEPTH)
+# the knee's anterior translation against its angle (metres against
+# radians), MyoLeg's coupling in shape: a quartic through the origin
+KNEE_POLYCOEF = (0.0, 0.012, -0.006, 0.0012, -0.0001)
+# the terrain field: 100 x 100 cells over 10 m x 10 m, heights up to 1 m;
+# its geom is turned half a turn about z and shifted so that the world
+# origin lies on row 46, where the hilly and stair recipes of the terrain
+# walk start at height zero, and walking along +y climbs them
+_HFIELD = (100, 100, (5.0, 5.0, 1.0, 0.1))
+_TERRAIN_POS = (0.0, -0.3535, 0.0)
+_GROUND_BITS = 1
+_FOOT_BITS = 2
+
+# muscle templates: name, force (N), then the path as (body, site pos)
+# points and ("wrap", geom, sidesite or "") entries. Bodies are named
+# without the side suffix; y coordinates are for the left leg and mirror
+# for the right. The first eight cover the hip's sphere wrap, the knee's
+# cylinder wrap, both with a side site, and every joint group.
+_LEG_MUSCLES = (
+    ("iliacus", 900, (("pelvis", (0.07, 0.065, 0.0)),
+                      ("wrap", "hip_wrap", "hip_front"),
+                      ("femur", (0.035, -0.005, -0.09)))),
+    ("recfem", 1200, (("pelvis", (0.06, 0.075, -0.04)),
+                      ("femur", (0.05, 0.0, -0.36)),
+                      ("wrap", "knee_wrap", "knee_front"),
+                      ("tibia", (0.045, 0.0, -0.07)))),
+    ("glmax", 1400, (("pelvis", (-0.09, 0.06, 0.02)),
+                     ("wrap", "hip_wrap", ""),
+                     ("femur", (-0.035, 0.01, -0.12)))),
+    ("bflh", 900, (("pelvis", (-0.07, 0.07, -0.09)),
+                   ("femur", (-0.05, 0.0, -0.33)),
+                   ("wrap", "knee_wrap", "knee_back"),
+                   ("tibia", (-0.035, 0.01, -0.07)))),
+    ("vasint", 1800, (("femur", (0.045, 0.0, -0.18)),
+                      ("wrap", "knee_wrap", "knee_front"),
+                      ("tibia", (0.045, 0.0, -0.06)))),
+    ("soleus", 2200, (("tibia", (-0.035, 0.0, -0.15)),
+                      ("calcn", (-0.06, 0.0, 0.01)))),
+    ("tibant", 800, (("tibia", (0.035, 0.0, -0.12)),
+                     ("tibia", (0.04, 0.0, -0.36)),
+                     ("calcn", (0.08, -0.005, 0.0)))),
+    ("fdl", 400, (("tibia", (-0.02, -0.01, -0.25)),
+                  ("calcn", (0.0, -0.015, -0.01)),
+                  ("toes", (0.03, 0.0, -0.02)))),
+    ("glmed", 1100, (("pelvis", (0.0, 0.14, 0.05)),
+                     ("femur", (0.0, 0.045, -0.06)))),
+    ("addlong", 700, (("pelvis", (0.03, 0.02, -0.09)),
+                      ("femur", (0.01, -0.02, -0.2)))),
+    ("gastroc", 1300, (("femur", (-0.035, 0.0, -0.39)),
+                       ("wrap", "knee_wrap", "knee_back"),
+                       ("calcn", (-0.06, 0.0, 0.015)))),
+    ("perlong", 600, (("tibia", (0.0, 0.03, -0.2)),
+                      ("tibia", (-0.01, 0.03, -0.38)),
+                      ("calcn", (0.05, 0.03, -0.02)))),
+    ("tibpost", 800, (("tibia", (-0.01, -0.02, -0.2)),
+                      ("tibia", (-0.015, -0.02, -0.38)),
+                      ("calcn", (0.04, -0.03, -0.02)))),
+    ("piri", 500, (("pelvis", (-0.06, 0.04, -0.03)),
+                   ("femur", (-0.01, 0.05, -0.02)))),
+    ("sart", 400, (("pelvis", (0.08, 0.11, -0.02)),
+                   ("femur", (0.0, -0.04, -0.38)),
+                   ("tibia", (0.01, -0.035, -0.08)))),
+    ("edl", 400, (("tibia", (0.03, 0.01, -0.2)),
+                  ("calcn", (0.08, 0.0, 0.01)),
+                  ("toes", (0.03, 0.0, 0.01)))),
+)
+
+
+def _leg_muscles(side: str, count: int) -> tuple[dict, str, str]:
+  """``count`` muscles of one leg from the templates: their sites per body
+  (name -> MJCF), the spatial tendons and the actuators. The k-th use of
+  a template shifts every site by a few millimetres so that no two
+  muscles share a path."""
+  mirror = 1.0 if side == "l" else -1.0
+  sites: dict[str, list[str]] = {}
+  tendons, actuators = [], []
+  for i in range(count):
+    name, force, path = _LEG_MUSCLES[i % len(_LEG_MUSCLES)]
+    k = i // len(_LEG_MUSCLES)
+    mname = f"{name}{k + 1}_{side}"
+    shift = (0.004 * k, 0.003 * k * (-1) ** k, -0.005 * k)
+    parts = []
+    for j, point in enumerate(path):
+      if point[0] == "wrap":
+        side_site = f' sidesite="{point[2]}_{side}"' if point[2] else ""
+        parts.append(f'<geom geom="{point[1]}_{side}"{side_site}/>')
+        continue
+      body, (x, y, z) = point
+      sname = f"{mname}_p{j}"
+      pos = (x + shift[0], mirror * (y + shift[1]), z + shift[2])
+      sites.setdefault(body, []).append(
+          f'<site name="{sname}" pos="{_f(*pos)}"/>')
+      parts.append(f'<site site="{sname}"/>')
+    tendons.append(f'<spatial name="{mname}_t">{"".join(parts)}</spatial>')
+    actuators.append(_muscle(mname, force * (0.9 + 0.05 * k)))
+  return ({b: "".join(s) for b, s in sites.items()},
+          "\n    ".join(tendons), "\n    ".join(actuators))
+
+
+def _leg(side: str, sites: dict) -> str:
+  """One leg from the hip down (femur, tibia, talus, calcn, toes)."""
+  m = 1.0 if side == "l" else -1.0
+  s = side
+  foot = f'contype="{_FOOT_BITS}" conaffinity="{_GROUND_BITS}"'
+  vis = 'contype="0" conaffinity="0"'
+  hip = (_LEG_HIP[0], m * _LEG_HIP[1], _LEG_HIP[2])
+  return f"""
+      <body name="femur_{s}" pos="{_f(*hip)}">
+        <inertial pos="0 0 -0.18" mass="8.5" diaginertia="0.14 0.14 0.025"/>
+        <joint name="hip_flexion_{s}" axis="0 -1 0" range="-0.5 1.6" damping="4" stiffness="300" armature="0.01"/>
+        <joint name="hip_adduction_{s}" axis="{_f(-m, 0, 0)}" range="-0.5 0.5" damping="4" stiffness="300" armature="0.01"/>
+        <joint name="hip_rotation_{s}" axis="{_f(0, 0, m)}" range="-0.6 0.6" damping="4" stiffness="150" armature="0.01"/>
+        <geom name="femur_bone_{s}" type="capsule" fromto="{_f(0, 0, 0, 0, 0, -_FEMUR_LEN)}" size="0.05" {vis}/>
+        <geom name="knee_wrap_{s}" type="cylinder" pos="{_f(0, 0, -_FEMUR_LEN)}" zaxis="0 1 0" size="0.04 0.05" {vis}/>
+        <site name="knee_front_{s}" pos="{_f(0.08, 0, -_FEMUR_LEN)}"/>
+        <site name="knee_back_{s}" pos="{_f(-0.08, 0, -_FEMUR_LEN)}"/>{sites.get("femur", "")}
+        <body name="tibia_{s}" pos="{_f(0, 0, -_FEMUR_LEN)}">
+          <inertial pos="0 0 -0.17" mass="3.6" diaginertia="0.05 0.05 0.006"/>
+          <joint name="knee_angle_{s}" axis="0 1 0" range="0 2.0" damping="4" stiffness="300" armature="0.01"/>
+          <joint name="knee_angle_translation_{s}" type="slide" axis="1 0 0" range="-0.03 0.03" damping="20" armature="0.02"/>
+          <geom name="tibia_bone_{s}" type="capsule" fromto="{_f(0, 0, -0.03, 0, 0, -_TIBIA_LEN)}" size="0.04" {vis}/>{sites.get("tibia", "")}
+          <body name="talus_{s}" pos="{_f(0, 0, -_TIBIA_LEN)}">
+            <inertial pos="0 0 -0.02" mass="0.1" diaginertia="0.0002 0.0002 0.0002"/>
+            <joint name="ankle_angle_{s}" axis="0 -1 0" range="-0.7 0.5" damping="2" stiffness="200" armature="0.005"/>
+            <body name="calcn_{s}" pos="{_f(0, 0, -_TALUS_LEN)}">
+              <inertial pos="0.05 0 -0.02" mass="1.2" diaginertia="0.004 0.004 0.001"/>
+              <joint name="subtalar_angle_{s}" axis="{_f(m, 0, 0.3)}" range="-0.35 0.35" damping="2" stiffness="100" armature="0.005"/>
+              <geom name="heel_{s}" type="sphere" pos="-0.05 0 -0.02" size="0.03" {foot}/>
+              <geom name="sole_{s}" type="capsule" fromto="-0.03 0 -0.025 0.12 0 -0.025" size="0.025" {foot}/>
+              <site name="{s[0]}_foot" pos="0.03 0 -0.04" size="0.09 0.05 0.03" type="box"/>{sites.get("calcn", "")}
+              <body name="toes_{s}" pos="0.15 0 -0.02">
+                <inertial pos="0.02 0 -0.01" mass="0.2" diaginertia="0.0003 0.0003 0.0003"/>
+                <joint name="mtp_angle_{s}" axis="0 -1 0" range="-0.5 0.9" damping="0.5" stiffness="30" armature="0.002"/>
+                <geom name="toe_bar_{s}" type="capsule" fromto="{_f(0.005, -0.03, -0.01, 0.005, 0.03, -0.01)}" size="0.02" {foot}/>
+                <geom name="toe_tip_{s}" type="sphere" pos="0.045 0 -0.015" size="0.015" {foot}/>
+                <site name="{s[0]}_toes" pos="0.03 0 -0.025" size="0.04 0.05 0.02" type="box"/>{sites.get("toes", "")}
+              </body>
+            </body>
+          </body>
+        </body>
+      </body>"""
+
+
+def _leg_key(hip=(0.0, 0.0), knee=(0.0, 0.0), ankle=(0.0, 0.0),
+             drop: float = 0.0) -> list[float]:
+  """A keyframe's qpos: the pelvis ``drop`` m under the standing height,
+  facing +y; hip flexion, knee and ankle angles per side (left, right);
+  each knee's translation on its coupling curve."""
+  def poly(q):
+    return sum(c * q ** i for i, c in enumerate(KNEE_POLYCOEF))
+  qpos = [0.0, 0.0, _PELVIS_HEIGHT - drop, 0.70710678, 0.0, 0.0, 0.70710678]
+  for i in range(2):
+    qpos += [hip[i], 0.0, 0.0, knee[i], poly(knee[i]), ankle[i], 0.0, 0.0]
+  return qpos
+
+
+# standing; a slight crouch; and two mid-stride poses (left leg forward,
+# then right), whose pelvis drop keeps the stance foot on the ground
+_LEG_KEYS = (
+    _leg_key(),
+    _leg_key(hip=(0.15, 0.15), knee=(0.3, 0.3), ankle=(0.15, 0.15),
+             drop=0.0087),
+    _leg_key(hip=(0.3, -0.2), knee=(0.15, 0.05), ankle=(0.05, 0.15),
+             drop=0.0016),
+    _leg_key(hip=(-0.2, 0.3), knee=(0.05, 0.15), ankle=(0.15, 0.05),
+             drop=0.0016),
+)
+
+
+def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False) -> str:
+  """MJCF text of the synthetic two-leg scene, MyoLeg's names and width.
+
+  - ``pelvis`` on a free joint (a ``pelvis`` site at its origin) with the
+    ``torso`` welded on top: 41.5 kg of the 68 kg above the hips, so the
+    standing centre of mass sits at about 0.94 m;
+  - per side (``_l``, ``_r``): ``femur``, ``tibia``, ``talus``, ``calcn``
+    and ``toes``; joints ``hip_flexion``, ``hip_adduction``,
+    ``hip_rotation``, ``knee_angle``, the slide
+    ``knee_angle_translation`` coupled to the knee angle by a joint
+    equality (``KNEE_POLYCOEF``), ``ankle_angle``, ``subtalar_angle`` and
+    ``mtp_angle``: nv 22. The hinges carry springs about the standing
+    pose, so the unactuated body stands;
+  - ``muscles_per_leg`` muscles per side on spatial tendons, with a
+    sphere wrap at the hip and a cylinder wrap at the knee (side sites in
+    front and behind): 40 gives legs80, MyoLeg's 80 actuators; 8 gives
+    legs16 for the CPU tests;
+  - feet of two spheres and two capsules each, the only colliding geoms,
+    against a floor plane and the hfield geom ``terrain`` (100 x 100 cells,
+    flat until a task overlays it); touch sensors ``r_foot``, ``r_toes``,
+    ``l_foot`` and ``l_toes`` on sites of those names;
+  - keyframes: standing, a slight crouch, and two mid-stride poses (keys 2
+    and 3, the walk's random reset);
+  - ``chasetag``: one mocap body ``opponent`` that collides with nothing.
+  """
+  if muscles_per_leg < 1:
+    raise ValueError(f"muscles_per_leg must be positive, got "
+                     f"{muscles_per_leg}")
+  legs, tendons, actuators = [], [], []
+  for side in ("l", "r"):
+    sites, ten, act = _leg_muscles(side, muscles_per_leg)
+    legs.append(_leg(side, sites))
+    tendons.append(ten)
+    actuators.append(act)
+  pelvis_sites = "".join(
+      _leg_muscles(s, muscles_per_leg)[0].get("pelvis", "") for s in "lr")
+  hip_parts = "".join(
+      f"""
+      <geom name="hip_wrap_{s}" type="sphere" pos="{_f(_LEG_HIP[0], m * _LEG_HIP[1], _LEG_HIP[2])}" size="0.035" contype="0" conaffinity="0"/>
+      <site name="hip_front_{s}" pos="{_f(0.07, m * _LEG_HIP[1], _LEG_HIP[2])}"/>"""
+      for s, m in (("l", 1.0), ("r", -1.0)))
+  nrow, ncol, size = _HFIELD
+  keys = "\n    ".join(
+      f'<key qpos="{_f(*q)}"/>' for q in _LEG_KEYS)
+  opponent = ("""
+    <body name="opponent" mocap="true" pos="2 2 0.9">
+      <geom name="opponent_body" type="capsule" fromto="0 0 -0.5 0 0 0.5" size="0.15" contype="0" conaffinity="0"/>
+    </body>""" if chasetag else "")
+  equalities = "\n    ".join(
+      f'<joint joint1="knee_angle_translation_{s}" joint2="knee_angle_{s}" '
+      f'polycoef="{_f(*KNEE_POLYCOEF)}"/>' for s in "lr")
+  name = f"legs{2 * muscles_per_leg}" + ("_chasetag" if chasetag else "")
+  return f"""<mujoco model="{name}">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>
+  <asset>
+    <hfield name="terrain" nrow="{nrow}" ncol="{ncol}" size="{_f(*size)}"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="10 10 0.1" contype="{_GROUND_BITS}" conaffinity="{_GROUND_BITS | _FOOT_BITS}"/>
+    <geom name="terrain" type="hfield" hfield="terrain" pos="{_f(*_TERRAIN_POS)}" euler="0 0 3.14159265" contype="{_GROUND_BITS}" conaffinity="{_GROUND_BITS | _FOOT_BITS}"/>
+    <body name="pelvis" pos="{_f(0, 0, _PELVIS_HEIGHT)}" quat="0.70710678 0 0 0.70710678">
+      <freejoint name="root"/>
+      <inertial pos="0 0 0" mass="11.5" diaginertia="0.1 0.09 0.08"/>
+      <geom name="pelvis_bone" type="capsule" fromto="0 -0.1 0 0 0.1 0" size="0.07" contype="0" conaffinity="0"/>
+      <site name="pelvis"/>{hip_parts}{pelvis_sites}
+      <body name="torso" pos="0 0 0.1">
+        <inertial pos="0 0 0.24" mass="30" diaginertia="1.3 1.2 0.3"/>
+        <geom name="torso_bone" type="capsule" fromto="0 0 0.05 0 0 0.45" size="0.13" contype="0" conaffinity="0"/>
+      </body>{"".join(legs)}
+    </body>{opponent}
+  </worldbody>
+  <equality>
+    {equalities}
+  </equality>
+  <tendon>
+    {chr(10).join("    " + t for t in tendons).strip()}
+  </tendon>
+  <actuator>
+    {chr(10).join("    " + a for a in actuators).strip()}
+  </actuator>
+  <sensor>
+    <touch name="r_foot" site="r_foot"/>
+    <touch name="r_toes" site="r_toes"/>
+    <touch name="l_foot" site="l_foot"/>
+    <touch name="l_toes" site="l_toes"/>
+  </sensor>
+  <keyframe>
+    {keys}
+  </keyframe>
+</mujoco>
+"""
+
+
+def plate_fixture_xml() -> str:
+  """A ball resting on a hinged plate, with a ``<force>`` sensor at the
+  plate's mount ("plate", nv 7): the scene of the JAX package's sensor
+  tests, for the static-weight check on the card (at rest the mount
+  carries the plate's 0.5 kg and the ball's 0.2 kg)."""
+  return """
+<mujoco>
+  <option timestep="0.002" gravity="0 0 -9.81"/>
+  <worldbody>
+    <body name="plate" pos="0 0 0.5">
+      <joint name="tilt" type="hinge" axis="0 1 0" damping="0.5"/>
+      <geom type="box" size="0.2 0.2 0.01" mass="0.5"/>
+      <site name="mount" pos="0 0 0" euler="0 0 0.4"/>
+    </body>
+    <body name="ball" pos="0.0 0 0.56">
+      <freejoint/>
+      <geom type="sphere" size="0.04" mass="0.2"/>
+    </body>
+  </worldbody>
+  <sensor>
+    <force name="plate_load" site="mount"/>
+  </sensor>
+</mujoco>
+"""

@@ -9,8 +9,10 @@ The narrowphase covers every primitive pair of the reference: the
 analytic plane, sphere, capsule, ellipsoid, cylinder and box pairs, and
 the generic convex path (MPR penetration and alternating closest points)
 for the ellipsoid, cylinder and box cross pairs, with the reference's
-fixed trip counts. Heightfield and mesh pairs are not ported: building
-the collision layout of a model with one raises ``NotImplementedError``
+fixed trip counts, and the heightfield pairs (a sphere, or a capsule as
+three probe spheres, against the bilinear surface; per-env heights from
+``Data.overlay["hfield_data"]``). Mesh pairs are not ported: building the
+collision layout of a model with one raises ``NotImplementedError``
 naming the pair; no pair is ever skipped.
 """
 from __future__ import annotations
@@ -69,9 +71,12 @@ _SUPPORTED = {
 }
 
 # type pairs whose narrowphase is ported: every supported pair but the
-# heightfield and mesh ones
-PORTED = {p for p in _SUPPORTED
-          if GeomType.HFIELD not in p and GeomType.MESH not in p}
+# mesh ones; ``_narrow_fn`` holds the primitive ones, ``_hfield_fn`` the
+# heightfield ones
+PORTED = {p for p in _SUPPORTED if GeomType.MESH not in p}
+PRIMITIVE = {p for p in PORTED if GeomType.HFIELD not in p}
+# where the port of the mesh pairs is queued
+_MESH_ITEM = "ROADMAP.md, Queue 1 item 4e (mesh hulls)"
 
 
 def _ordered(m: Model, g1: int, g2: int) -> tuple[int, int] | None:
@@ -173,6 +178,17 @@ class _Group:
   g2: torch.Tensor
   size1: torch.Tensor    # [G, 3]
   size2: torch.Tensor
+  hfield: "_HField | None" = None  # geom1's field, for the hfield pairs
+
+
+@dataclasses.dataclass(frozen=True)
+class _HField:
+  """One heightfield: its slice of ``hfield_data``, grid and size."""
+  adr: int
+  nrow: int
+  ncol: int
+  size: tuple            # (x, y, z) half-extents and height scale
+  heights: torch.Tensor  # [nrow * ncol] the model's (a view of its buffer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,8 +215,10 @@ def _build_collision_spec(m: DeviceModel) -> _CollisionSpec | None:
       names = {int(v): k for k, v in GeomType.__members__.items()}
       raise NotImplementedError(
           f"collision pair {names[key[0]]}-{names[key[1]]} (geoms {p.g1}, "
-          f"{p.g2}) has no narrowphase in the port yet")
-    by_type.setdefault(key, []).append(p)
+          f"{p.g2}) has no narrowphase in the port yet; see {_MESH_ITEM}")
+    # the reference groups hfield pairs by field as well
+    dataid = int(h.geom_dataid[p.g1]) if key[0] == GeomType.HFIELD else -1
+    by_type.setdefault(key + (dataid,), []).append(p)
   condims = {p.condim for p in pairs}
   if condims - {1, 3, 4, 6}:
     raise NotImplementedError(f"contact condim {condims}")
@@ -212,8 +230,9 @@ def _build_collision_spec(m: DeviceModel) -> _CollisionSpec | None:
     plist = by_type[key]
     g1 = [p.g1 for p in plist]
     g2 = [p.g2 for p in plist]
-    groups.append(_Group(key, t(g1), t(g2), m.tensor(h.geom_size[g1]),
-                         m.tensor(h.geom_size[g2])))
+    groups.append(_Group(key[:2], t(g1), t(g2), m.tensor(h.geom_size[g1]),
+                         m.tensor(h.geom_size[g2]),
+                         _hfield(m, key[2]) if key[2] >= 0 else None))
     # slots are point-major then pair-major: [point0 of all pairs, ...]
     for _ in range(_npoints(h, plist[0])):
       for p in plist:
@@ -233,6 +252,15 @@ def _build_collision_spec(m: DeviceModel) -> _CollisionSpec | None:
 
 def collision_spec(m: DeviceModel) -> _CollisionSpec | None:
   return m.spec("collision", _build_collision_spec)
+
+
+def _hfield(m: DeviceModel, dataid: int) -> _HField:
+  h = m.host
+  adr, nrow, ncol = (int(h.hfield_adr[dataid]), int(h.hfield_nrow[dataid]),
+                     int(h.hfield_ncol[dataid]))
+  return _HField(adr=adr, nrow=nrow, ncol=ncol,
+                 size=tuple(float(x) for x in h.hfield_size[dataid, :3]),
+                 heights=m.hfield_data[adr:adr + nrow * ncol])
 
 
 # ---------------------------------------------------------------------------
@@ -871,6 +899,77 @@ def _one(fn):
   return wrapped
 
 
+def _hfield_heights(heights, idx):
+  """``heights`` at flat cell indices ``idx`` [B, ...]: one field [N], or
+  one per env [B, N]."""
+  if heights.dim() == 1:
+    return heights[idx]
+  B = idx.shape[0]
+  return torch.gather(heights, 1, idx.reshape(B, -1)).reshape(idx.shape)
+
+
+def _hfield_height_normal(xy, heights, size, nrow: int, ncol: int):
+  """Bilinear height [B, ...] and outward normal [B, ..., 3] of a field at
+  local xy [B, ..., 2] (see ``_hfield_heights`` for ``heights``). The grid
+  coordinate clips at n - 1.001, as the reference's."""
+  sx, sy, sz = size
+  gx = (xy[..., 0] + sx) / (2 * sx) * (ncol - 1)
+  gy = (xy[..., 1] + sy) / (2 * sy) * (nrow - 1)
+  gx = torch.clamp(gx, 0.0, ncol - 1.001)
+  gy = torch.clamp(gy, 0.0, nrow - 1.001)
+  c0 = torch.floor(gx)
+  r0 = torch.floor(gy)
+  fx = gx - c0
+  fy = gy - r0
+  idx = (r0 * ncol + c0).long()
+  h00, h01, h10, h11 = (_hfield_heights(heights, idx + off)
+                        for off in (0, 1, ncol, ncol + 1))
+  h = ((1 - fy) * ((1 - fx) * h00 + fx * h01)
+       + fy * ((1 - fx) * h10 + fx * h11)) * sz
+  dx_cell = 2 * sx / (ncol - 1)
+  dy_cell = 2 * sy / (nrow - 1)
+  dhdx = ((1 - fy) * (h01 - h00) + fy * (h11 - h10)) * sz / dx_cell
+  dhdy = ((1 - fx) * (h10 - h00) + fx * (h11 - h01)) * sz / dy_cell
+  n = torch.stack([-dhdx, -dhdy, torch.ones_like(h)], -1)
+  return h, _unit(n)
+
+
+def _sphere_hfield(c2, r2, gpos, gmat, heights, size, nrow, ncol):
+  """Sphere (geom2) against a field (geom1), one point: (dist, pos, n)
+  with n the field's normal under the sphere, in world axes."""
+  local = _mtv(gmat, c2 - gpos)
+  h, n_l = _hfield_height_normal(local[..., :2], heights, size, nrow, ncol)
+  dist = (local[..., 2] - h) * n_l[..., 2] - r2
+  surf_l = torch.cat([local[..., :2], h[..., None]], -1)
+  n = _mv(gmat, n_l)
+  surf = gpos + _mv(gmat, surf_l)
+  pos = 0.5 * (surf + (c2 - n * r2[..., None]))
+  return dist, pos, n
+
+
+def _capsule_hfield(c_pos, c_mat, r2, half, gpos, gmat, heights, size, nrow,
+                    ncol):
+  """Capsule (geom2) against a field (geom1): its ends and its midpoint as
+  three probe spheres, in that order."""
+  a, b = _capsule_ends(c_pos, c_mat, half)
+  probes = torch.stack([a, b, 0.5 * (a + b)], dim=-2)      # [..., 3, 3]
+  return _sphere_hfield(probes, r2[..., None], gpos[..., None, :],
+                        gmat[..., None, :, :], heights, size, nrow, ncol)
+
+
+def _hfield_fn(t2: int, heights, field: _HField):
+  """The narrowphase of geom type ``t2`` against ``field`` with the given
+  heights ([nrow * ncol], or [B, nrow * ncol] per env)."""
+  args = (heights, field.size, field.nrow, field.ncol)
+  if t2 == GeomType.SPHERE:
+    return _one(lambda p1, m1, s1, p2, m2, s2: _sphere_hfield(
+        p2, s2[..., 0], p1, m1, *args))
+  if t2 == GeomType.CAPSULE:
+    return lambda p1, m1, s1, p2, m2, s2: _capsule_hfield(
+        p2, m2, s2[..., 0], s2[..., 1], p1, m1, *args)
+  raise NotImplementedError(f"hfield collision vs type {t2}")
+
+
 def _narrow_fn(t1: int, t2: int):
   """Uniform signature (p1, m1, s1, p2, m2, s2) -> (dist [..., P],
   pos [..., P, 3], n [..., P, 3]), the reference's dispatch table."""
@@ -923,11 +1022,24 @@ def _narrow_fn(t1: int, t2: int):
   return _one(_convex_convex_fn(t1, t2))
 
 
+def group_fn(g: _Group, d: Data):
+  """The narrowphase of a type group: ``_narrow_fn``'s, or a field's with
+  its heights (the model's, or ``d.overlay["hfield_data"]`` per env)."""
+  if g.hfield is None:
+    return _narrow_fn(*g.types)
+  f = g.hfield
+  heights = d.overlay.get("hfield_data")
+  heights = (f.heights if heights is None else
+             heights[:, f.adr:f.adr + f.nrow * f.ncol])
+  return _hfield_fn(g.types[1], heights, f)
+
+
 def narrowphase_all(m: DeviceModel, d: Data, spec: _CollisionSpec):
   """All candidate contact points in slot order: dist [B, C], pos and n
   [B, C, 3]. ``overlay["geom_size"]`` [B, ngeom, 3] replaces the sizes per
-  env. Each type group runs as one batch [B, G] with its points on a last
-  axis; slots are point-major, then pair-major."""
+  env, ``overlay["hfield_data"]`` [B, len(hfield_data)] the heights. Each
+  type group runs as one batch [B, G] with its points on a last axis;
+  slots are point-major, then pair-major."""
   sizes = d.overlay.get("geom_size")
   B = d.qpos.shape[0]
   dists, poss, ns = [], [], []
@@ -937,7 +1049,7 @@ def narrowphase_all(m: DeviceModel, d: Data, spec: _CollisionSpec):
       s2 = g.size2.expand(B, -1, -1)
     else:
       s1, s2 = sizes[:, g.g1], sizes[:, g.g2]
-    di, po, nn = _narrow_fn(*g.types)(
+    di, po, nn = group_fn(g, d)(
         d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1], s1,
         d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], s2)
     dists.append(di.transpose(1, 2).reshape(B, -1))
@@ -954,7 +1066,6 @@ def contacts(m: DeviceModel, d: Data, max_contacts: int | None = None):
   J [B, R, nv], pos [B, R], invweight [B, R], solref [B, R, 2], solimp
   [B, R, 5] for the k deepest candidates of each env (R = k rows-per-slot)
   and ``dropped`` [B], the in-margin candidates the cull discarded.
-  ``torch.topk`` may order equal scores differently from ``lax.top_k``.
   """
   spec = collision_spec(m)
   if spec is None:
@@ -967,7 +1078,9 @@ def contacts(m: DeviceModel, d: Data, max_contacts: int | None = None):
                                                         DEFAULT_MAX_CONTACTS)
   k = min(k, C)
   if k < C:
-    idx = torch.topk(-score, k, dim=1).indices
+    # a stable sort breaks ties by slot, as ``lax.top_k`` does (feet
+    # resting on a flat field and on the floor tie exactly)
+    idx = torch.sort(score, dim=1, stable=True).indices[:, :k]
     dropped = ((score < 0).sum(1)
                - (torch.gather(score, 1, idx) < 0).sum(1)).to(torch.int32)
   else:

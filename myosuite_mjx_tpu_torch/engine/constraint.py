@@ -1,11 +1,11 @@
 """Constraint rows (the efc system) for the Newton solver.
 
-Counterpart of ``myosuite_mjx_tpu/engine/constraint.py``: joint limits,
-tendon limits and contacts as dense blocks J [B, R, nv] with reference
-acceleration ``aref`` and inverse regularizer ``D`` from MuJoCo's
-solref/solimp impedance. Every limit row exists for every env and is masked
-by activity, so all envs share one shape. Equality rows are not ported
-(``DeviceModel`` rejects models with equality constraints).
+Counterpart of ``myosuite_mjx_tpu/engine/constraint.py``: joint and
+tendon equalities, joint limits, tendon limits and contacts as dense blocks
+J [B, R, nv] with reference acceleration ``aref`` and inverse regularizer
+``D`` from MuJoCo's solref/solimp impedance. Every limit row exists for
+every env and is masked by activity, so all envs share one shape; an
+equality row is always active (``is_eq``: D = 1/r whatever its sign).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import torch
 
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import (
-    DSBL_CONSTRAINT, DSBL_CONTACT, DSBL_LIMIT, DeviceModel)
+    DSBL_CONSTRAINT, DSBL_CONTACT, DSBL_EQUALITY, DSBL_LIMIT, DeviceModel,
+    EqType)
 
 _MINVAL = 1e-15
 _MINIMP = 0.0001
@@ -91,12 +92,132 @@ def limit_spec(m: DeviceModel) -> _LimitSpec:
   return m.spec("limit", _build_limit_spec)
 
 
+@dataclasses.dataclass(frozen=True)
+class _EqBlock:
+  """The active equalities of one type (joint or tendon): their object
+  ids, the polynomial's coefficients, the reference values and the rows
+  they take in model order."""
+  obj1: torch.Tensor     # [E'] qpos address (joint) or tendon id
+  obj2: torch.Tensor     # [E'] the same for obj2; obj1's for a one-sided row
+  dof1: torch.Tensor     # [E'] dof address (joint rows)
+  dof2: torch.Tensor
+  ref1: torch.Tensor     # [E'] qpos0 or tendon_length0 of obj1
+  ref2: torch.Tensor
+  coef: torch.Tensor     # [E', 5]; c1..c4 zero on a one-sided row
+  rows: torch.Tensor     # [E'] row index among the E equality rows
+
+
+@dataclasses.dataclass(frozen=True)
+class _EqSpec:
+  joint: _EqBlock | None
+  tendon: _EqBlock | None
+  order: torch.Tensor | None  # [E] joint rows then tendon rows -> model order
+  invw: torch.Tensor          # [E] in model order
+  solref: torch.Tensor        # [E, 2]
+  solimp: torch.Tensor        # [E, 5]
+  n: int
+
+
+def _build_eq_spec(m: DeviceModel) -> _EqSpec | None:
+  h = m.host
+  active = [e for e in range(h.neq) if bool(h.eq_active0[e])]
+  if not active:
+    return None
+  t = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=m.device)
+  blocks, invw = {}, []
+  for kind in (EqType.JOINT, EqType.TENDON):
+    rows = [r for r, e in enumerate(active) if int(h.eq_type[e]) == kind]
+    if not rows:
+      blocks[kind] = None
+      continue
+    o1, o2, d1, d2, r1, r2, coef = [], [], [], [], [], [], []
+    for r in rows:
+      e = active[r]
+      i1, i2 = int(h.eq_obj1id[e]), int(h.eq_obj2id[e])
+      c = np.array(h.eq_data[e][:5], np.float64)
+      if i2 < 0:   # one-sided: obj1 against the constant c0
+        i2 = i1
+        c[1:] = 0.0
+      if kind == EqType.JOINT:
+        o1.append(int(h.jnt_qposadr[i1]))
+        o2.append(int(h.jnt_qposadr[i2]))
+        d1.append(int(h.jnt_dofadr[i1]))
+        d2.append(int(h.jnt_dofadr[i2]))
+        r1.append(h.qpos0[o1[-1]])
+        r2.append(h.qpos0[o2[-1]])
+        iw = h.dof_invweight0[d1[-1]]
+        if int(h.eq_obj2id[e]) >= 0:
+          iw = iw + h.dof_invweight0[d2[-1]]
+      else:
+        o1.append(i1)
+        o2.append(i2)
+        r1.append(h.tendon_length0[i1])
+        r2.append(h.tendon_length0[i2])
+        iw = h.tendon_invweight0[i1]
+        if int(h.eq_obj2id[e]) >= 0:
+          iw = iw + h.tendon_invweight0[i2]
+      invw.append((r, float(iw)))
+      coef.append(c)
+    blocks[kind] = _EqBlock(
+        obj1=t(o1), obj2=t(o2), dof1=t(d1), dof2=t(d2), ref1=m.tensor(r1),
+        ref2=m.tensor(r2), coef=m.tensor(np.asarray(coef)), rows=t(rows))
+  stacked = [b.rows for b in blocks.values() if b is not None]
+  order = None
+  if len(stacked) > 1:
+    order = torch.argsort(torch.cat(stacked))
+  return _EqSpec(
+      joint=blocks[EqType.JOINT], tendon=blocks[EqType.TENDON], order=order,
+      invw=m.tensor([w for _, w in sorted(invw)]),
+      solref=m.tensor(h.eq_solref[active]),
+      solimp=m.tensor(h.eq_solimp[active]), n=len(active))
+
+
+def eq_spec(m: DeviceModel) -> _EqSpec | None:
+  return m.spec("equality", _build_eq_spec)
+
+
+def _poly(coef, dif):
+  """The coupling polynomial and its derivative at ``dif`` [B, E']."""
+  c0, c1, c2, c3, c4 = coef.unbind(-1)
+  poly = c0 + c1 * dif + c2 * dif**2 + c3 * dif**3 + c4 * dif**4
+  dpoly = c1 + 2 * c2 * dif + 3 * c3 * dif**2 + 4 * c4 * dif**3
+  return poly, dpoly
+
+
+def equality_rows(m: DeviceModel, d: Data, spec: _EqSpec):
+  """Joint and tendon coupling rows, J [B, E, nv] and pos [B, E], in
+  model order: obj1 - ref1 = poly(obj2 - ref2) for a joint (qpos) or a
+  tendon (length against ``tendon_length0``); a one-sided row holds obj1
+  at ref1 + c0."""
+  B = d.qpos.shape[0]
+  Js, poss = [], []
+  if spec.joint is not None:
+    b = spec.joint
+    poly, dpoly = _poly(b.coef, d.qpos[:, b.obj2] - b.ref2)
+    poss.append(d.qpos[:, b.obj1] - b.ref1 - poly)
+    rows = torch.arange(b.obj1.numel(), device=d.qpos.device)
+    J = d.qpos.new_zeros((B, rows.numel(), m.nv))
+    J[:, rows, b.dof1] = 1.0
+    J = J.index_put((torch.arange(B, device=J.device)[:, None], rows,
+                     b.dof2), -dpoly, accumulate=True)
+    Js.append(J)
+  if spec.tendon is not None:
+    b = spec.tendon
+    poly, dpoly = _poly(b.coef, d.ten_length[:, b.obj2] - b.ref2)
+    poss.append(d.ten_length[:, b.obj1] - b.ref1 - poly)
+    Js.append(d.ten_J[:, b.obj1] - dpoly[..., None] * d.ten_J[:, b.obj2])
+  J, pos = torch.cat(Js, dim=1), torch.cat(poss, dim=1)
+  if spec.order is not None:
+    J, pos = J[:, spec.order], pos[:, spec.order]
+  return J, pos
+
+
 def make_efc(m: DeviceModel, d: Data, contact_blocks: dict | None):
   """Assemble the dense constraint system.
 
   Returns (J, aref, D, is_eq, pos, meta) or None when no rows can exist.
-  Row order: joint limits, tendon limits, contacts. meta holds the joint
-  limit block: {"jl_offset", "jl_dadr", "jl_sign" [B, LJ]}.
+  Row order: equalities, joint limits, tendon limits, contacts. meta holds
+  the joint limit block: {"jl_offset", "jl_dadr", "jl_sign" [B, LJ]}.
   """
   dsbl = m.opt.disableflags
   if dsbl & DSBL_CONSTRAINT:
@@ -107,6 +228,18 @@ def make_efc(m: DeviceModel, d: Data, contact_blocks: dict | None):
   meta = {"jl_offset": 0, "jl_dadr": spec.jl_dadr,
           "jl_sign": d.qpos.new_zeros((B, LJ))}
   Js, poss, invws, srs, sis = [], [], [], [], []
+
+  eq = eq_spec(m)
+  n_eq = 0
+  if eq is not None and not (dsbl & DSBL_EQUALITY):
+    J, pos = equality_rows(m, d, eq)
+    Js.append(J)
+    poss.append(pos)
+    invws.append(eq.invw.expand(B, eq.n))
+    srs.append(eq.solref.expand(B, eq.n, 2))
+    sis.append(eq.solimp.expand(B, eq.n, 5))
+    n_eq = eq.n
+    meta["jl_offset"] = n_eq
 
   if not (dsbl & DSBL_LIMIT):
     if LJ:
@@ -151,7 +284,7 @@ def make_efc(m: DeviceModel, d: Data, contact_blocks: dict | None):
   invweight = torch.cat(invws, dim=1)
   solref = torch.cat(srs, dim=1)
   solimp = torch.cat(sis, dim=1)
-  is_eq = torch.zeros(J.shape[1], dtype=torch.bool, device=J.device)
+  is_eq = torch.arange(J.shape[1], device=J.device) < n_eq
 
   k, b, imp = kbi(m, solref, solimp, pos)
   vel = (J @ d.qvel[..., None])[..., 0]

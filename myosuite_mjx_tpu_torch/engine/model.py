@@ -280,9 +280,10 @@ def _to_tensor(x: np.ndarray, dtype, device, default_float=None):
 def _check_supported(m: Model) -> None:
   """Raise for model features whose engine paths are not ported yet.
 
-  Every joint type and mocap bodies are ported. What the JAX package
-  refuses when it traces the step is refused here, when the model is
-  loaded: limits on ball joints (its ``engine/constraint.py``), and joint
+  Every joint type, mocap bodies and joint and tendon equalities are
+  ported. What the JAX package refuses when it traces the step is refused
+  here, when the model is loaded: limits on ball joints and equalities of
+  another type (connect, weld; its ``engine/constraint.py``), and joint
   transmission and springs on ball and free joints (its
   ``engine/forward.py``).
   """
@@ -295,8 +296,9 @@ def _check_supported(m: Model) -> None:
   trn_joint = np.asarray(m.actuator_trntype) == TrnType.JOINT
   if np.any(quat_joint[np.asarray(m.actuator_trnid)[trn_joint, 0]]):
     raise NotImplementedError("joint transmission on ball/free joints")
-  if m.neq:
-    raise NotImplementedError("equality constraints are not ported yet")
+  for e in range(m.neq):
+    if int(m.eq_type[e]) not in (EqType.JOINT, EqType.TENDON):
+      raise NotImplementedError(f"equality type {int(m.eq_type[e])}")
   if int(m.opt.integrator) != IntegratorType.EULER:
     raise NotImplementedError(f"integrator {int(m.opt.integrator)}")
   if int(m.opt.cone) != ConeType.PYRAMIDAL:

@@ -34,6 +34,14 @@ below run the same task classes on the synthetic hands of
   ``muscle_condition``), e.g. ``hand23SarcPoseFixed-v0``. There are no
   ``Reaf`` (reafferentation) variants: no fixture has the EIP and EPL
   muscles that condition reroutes.
+- The leg ids, on the two-leg scene of ``assets/fixtures.py`` in place of
+  MyoSuite's myolegs.xml (``legs80``: 80 muscles, MyoLeg's width;
+  ``legs16`` for the CPU tests), with the kwargs of the reference's
+  myoLegStandRandom-v0, myoLegWalk-v0 and the rough, hilly and stair
+  terrain walks: ``<legs>StandRandom-v0``, ``<legs>Walk-v0``,
+  ``<legs>RoughTerrainWalk-v0``, ``<legs>HillyTerrainWalk-v0`` and
+  ``<legs>StairTerrainWalk-v0``, each with its ``Sarc`` and ``Fati``
+  variants (``legs80SarcWalk-v0``), as the reference registers them.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
 from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
 from myosuite_mjx_tpu_torch.envs.registry import (asset, register,
                                                   register_env_variant)
+from myosuite_mjx_tpu_torch.envs.walk import (LegReachEnv, TerrainWalkEnv,
+                                              WalkEnv)
 
 HANDS = {"hand23": ("hand23.npz", ("THtip", "IFtip", "MFtip", "RFtip",
                                    "LFtip")),
@@ -104,4 +114,36 @@ for _id in BASE_IDS:
   register_env_variant(_id, f"{_hand}Sarc{_task}",
                        {"muscle_condition": "sarcopenia"})
   register_env_variant(_id, f"{_hand}Fati{_task}",
+                       {"muscle_condition": "fatigue"})
+
+# ---- the legs ---------------------------------------------------------------
+
+LEGS = ("legs80", "legs16")
+_WALK = dict(normalize_act=True, min_height=0.8, max_rot=0.8, hip_period=100,
+             reset_type="random", target_x_vel=0.0, target_y_vel=1.2)
+LEG_IDS = []
+for _legs in LEGS:
+  _path = asset(f"{_legs}.npz")
+  register(f"{_legs}StandRandom-v0", LegReachEnv, max_episode_steps=150,
+           kwargs=dict(model_path=_path, joint_random_range=(-0.2, 0.2),
+                       target_reach_range={
+                           "pelvis": ((-0.05, -0.05, 0), (0.05, 0.05, 0))},
+                       normalize_act=True, far_th=0.44))
+  register(f"{_legs}Walk-v0", WalkEnv, max_episode_steps=1000,
+           kwargs=dict(model_path=_path, **_WALK))
+  LEG_IDS += [f"{_legs}StandRandom-v0", f"{_legs}Walk-v0"]
+  for _name, _terrain, _variant in (("Rough", "rough", None),
+                                    ("Hilly", "hilly", "fixed"),
+                                    ("Stair", "stairs", "fixed")):
+    register(f"{_legs}{_name}TerrainWalk-v0", TerrainWalkEnv,
+             max_episode_steps=1000,
+             kwargs=dict(model_path=_path, terrain=_terrain,
+                         variant=_variant, **_WALK))
+    LEG_IDS.append(f"{_legs}{_name}TerrainWalk-v0")
+
+for _id in LEG_IDS:
+  _legs, _task = _id[:6], _id[6:]
+  register_env_variant(_id, f"{_legs}Sarc{_task}",
+                       {"muscle_condition": "sarcopenia"})
+  register_env_variant(_id, f"{_legs}Fati{_task}",
                        {"muscle_condition": "fatigue"})

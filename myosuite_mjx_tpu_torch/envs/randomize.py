@@ -46,6 +46,15 @@ def uniform(shape: tuple, generator: torch.Generator | None, device,
   return (lo + (hi - lo) * u).to(device=device, dtype=dtype)
 
 
+def normal(shape: tuple, generator: torch.Generator | None, device,
+           dtype: torch.dtype):
+  """Standard normal draws of ``shape``, made as ``uniform``'s are."""
+  where = generator.device if generator is not None else device
+  z = torch.randn(shape, generator=generator, device=where,
+                  dtype=torch.float64)
+  return z.to(device=device, dtype=dtype)
+
+
 def draw_shapes(model, spec: RandomizeSpec, batch: int) -> dict:
   """The shape of each field's draw: one scale per row of the field, and
   one offset per body coordinate."""

@@ -1,15 +1,19 @@
 """How many PyTorch ops one physics substep of a scene dispatches.
 
     python -m myosuite_mjx_tpu_torch.tools.count_ops hand23 hand23_hold \
-        prims36 [--device cpu] [--batch 4]
+        prims36 legs80Walk-v0 [--device cpu] [--batch 4]
 
-Each name is a scene of ``assets/`` (``<name>.npz``). For each it prints
-the ops of one ``forward.step`` (``full_data=False``, as the frame-skip
-loop's substeps), of its ``collision.contacts`` call, and of each
-narrowphase type group. Views (reshape, expand, slicing, transposes) are
-not counted: they launch no kernel. On the card nearly every counted op
-is one kernel launch, so the count predicts the host's dispatch cost
-without a card; ``tools/profile_step.py`` measures the launches there.
+Each name is a scene of ``assets/`` (``<name>.npz``) or a task id of the
+registry (``envs.registry_ids()``). For each it prints the ops of one
+``forward.step`` (``full_data=False``, as the frame-skip loop's
+substeps), of its ``collision.contacts`` call, and of each narrowphase
+type group; for a task id the state is a reset of the task (its overlay,
+its mocap bodies), and it also prints the ops of one control step
+(``autoreset_step``: ``frame_skip`` substeps, obs, reward and the folded-in
+reset). Views (reshape, expand, slicing, transposes) are not counted: they
+launch no kernel. On the card nearly every counted op is one kernel
+launch, so the count predicts the host's dispatch cost without a card;
+``tools/profile_step.py`` measures the launches there.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import argparse
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from myosuite_mjx_tpu_torch import envs
 from myosuite_mjx_tpu_torch.engine import collision, forward
 from myosuite_mjx_tpu_torch.engine import data as data_mod
 from myosuite_mjx_tpu_torch.engine import model as model_mod
@@ -51,22 +56,36 @@ def count(fn) -> int:
 
 def main(argv=None) -> None:
   ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  ap.add_argument("scenes", nargs="+", help="npz names in assets/")
+  ap.add_argument("scenes", nargs="+",
+                  help="npz names in assets/ or task ids")
   ap.add_argument("--device", default="cuda")
   ap.add_argument("--batch", type=int, default=4)
   args = ap.parse_args(argv)
   for name in args.scenes:
-    dm = model_mod.DeviceModel(model_mod.load_npz(asset(f"{name}.npz")),
-                               torch.float32, args.device)
-    d = forward.step(dm, data_mod.make_data(dm, args.batch, torch.float32,
-                                            args.device))
-    print(f"{name}: substep {count(lambda: forward.step(dm, d, False))} "
-          f"ops, contacts {count(lambda: collision.contacts(dm, d))}")
+    env = None
+    if name.endswith("-v0"):
+      env = envs.make(name)
+      dm = env.device_model(args.device)
+      st = env.reset(args.batch, args.device,
+                     torch.Generator(args.device).manual_seed(0))
+      d = st.data
+    else:
+      dm = model_mod.DeviceModel(model_mod.load_npz(asset(f"{name}.npz")),
+                                 torch.float32, args.device)
+      d = forward.step(dm, data_mod.make_data(dm, args.batch, torch.float32,
+                                              args.device))
+    line = (f"{name}: substep {count(lambda: forward.step(dm, d, False))} "
+            f"ops, contacts {count(lambda: collision.contacts(dm, d))}")
+    if env is not None:
+      action = torch.zeros((args.batch, env.action_dim), device=args.device)
+      line += (f", control step (frame_skip {env.frame_skip}) "
+               f"{count(lambda: env.autoreset_step(st, action))}")
+    print(line)
     spec = collision.collision_spec(dm)
     for g in spec.groups:
       s1 = g.size1.expand(args.batch, -1, -1)
       s2 = g.size2.expand(args.batch, -1, -1)
-      ops = count(lambda: collision._narrow_fn(*g.types)(
+      ops = count(lambda: collision.group_fn(g, d)(
           d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1], s1,
           d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], s2))
       names = "-".join(model_mod.GeomType(t).name for t in g.types)

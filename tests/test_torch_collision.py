@@ -45,7 +45,7 @@ N_CASE = 16          # poses per regime
 # the centre distance as a share of the summed extents along the offset:
 # separated, shallow, deep; and coincident centres
 REGIMES = (1.4, 0.93, 0.5, 0.0)
-PAIRS = sorted(tc.PORTED)
+PAIRS = sorted(tc.PRIMITIVE)
 # the reference's own sensitivity (see test_pair_matches_jax)
 N_PERTURB = 8
 PERTURB = 1e-12
@@ -180,9 +180,12 @@ def test_pair_matches_jax(pair):
 
 
 def test_every_supported_pair_but_hfield_and_mesh_is_ported():
-  want = {p for p in jc._SUPPORTED
-          if T.HFIELD not in p and T.MESH not in p}
-  assert tc.PORTED == want and len(want) == 20
+  # the heightfield pairs are ported too (tests/test_torch_hfield.py):
+  # every supported pair but the mesh ones
+  want = {p for p in jc._SUPPORTED if T.MESH not in p}
+  assert tc.PORTED == want and len(want) == 22
+  assert tc.PRIMITIVE == {p for p in want if T.HFIELD not in p}
+  assert len(tc.PRIMITIVE) == 20
   # the slot counts of the reference
   assert sorted(tc._SUPPORTED) == sorted(jc._SUPPORTED)
 
@@ -412,7 +415,7 @@ def test_prims_contacts_match_jax(overlay):
 
   spec = tc.collision_spec(pm)
   kinds = {tuple(g.types) for g in spec.groups}
-  assert kinds == tc.PORTED and spec.condim == 6
+  assert kinds == tc.PRIMITIVE and spec.condim == 6
   assert sorted(set(to_np(spec.itab[:, 4]).tolist())) == [3, 4, 6]
   assert spec.nslot > tc.DEFAULT_MAX_CONTACTS
   jo = _slot_order(to_np(ji.geom1), to_np(ji.geom2), to_np(ji.dist))

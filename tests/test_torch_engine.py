@@ -292,21 +292,22 @@ def test_step_full_data_false_keeps_carry_exact():
 
 
 def test_unported_pair_type_raises():
-  """Heightfield and mesh pairs have no narrowphase in the port: building
-  the layout names the pair."""
+  """Mesh pairs have no narrowphase in the port: building the layout
+  names the pair and the roadmap item that ports it. (Heightfield pairs
+  are ported: ``tests/test_torch_hfield.py``.)"""
   from myosuite_mjx_tpu.engine.model import load_model
   from myosuite_mjx_tpu_torch.engine.model import DeviceModel, from_reference
   body = """<body pos="0 0 .1"><joint type="slide" axis="0 0 1"/>{}</body>"""
+  mesh = ('<asset><mesh name="tet" vertex="0 0 0 .05 0 0 0 .05 0 0 0 .05"/>'
+          '</asset>')
   scenes = {
-      "PLANE-MESH": ('<asset><mesh name="tet" vertex="0 0 0 .05 0 0 0 .05 0 '
-                     '0 0 .05"/></asset>', '<geom type="plane" size="1 1 .1"/>',
+      "PLANE-MESH": (mesh, '<geom type="plane" size="1 1 .1"/>',
                      '<geom type="mesh" mesh="tet"/>'),
-      "HFIELD-SPHERE": ("""<asset><hfield name="h" nrow="3" ncol="3"
-          size="1 1 .1 .1"/></asset>""", '<geom type="hfield" hfield="h"/>',
-                        '<geom type="sphere" size=".05"/>')}
+      "SPHERE-MESH": (mesh, '<geom type="mesh" mesh="tet"/>',
+                      '<geom type="sphere" size=".05"/>')}
   for pair, (asset, ground, geom) in scenes.items():
     xml = (f"<mujoco>{asset}<worldbody>{ground}{body.format(geom)}"
            "</worldbody></mujoco>")
     dm = DeviceModel(from_reference(load_model(xml)), torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match=pair):
+    with pytest.raises(NotImplementedError, match=f"{pair}.*Queue 1 item 4e"):
       collision.collision_spec(dm)

@@ -12,8 +12,9 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
-from torch_parity import (FIXTURE_NPZ, HAND_TARGET, NPZ, OBJECTS,
+from torch_parity import (FIXTURE_NPZ, HAND_TARGET, LEGS, NPZ, OBJECTS,
                           export_model, fixture_xml, jax_model)
 from myosuite_mjx_tpu.engine import model as jmodel
 from myosuite_mjx_tpu_torch.engine import api, collision
@@ -46,7 +47,7 @@ def _assert_models_equal(a: tmodel.Model, b: tmodel.Model):
 
 
 @pytest.mark.parametrize("digits", [2, 5, "free", "prims", *(
-    f"{obj}{d}" for obj in OBJECTS for d in (2, 5))])
+    f"{obj}{d}" for obj in OBJECTS for d in (2, 5)), *LEGS, "plate"])
 def test_checked_in_npz_equals_fresh_export(digits):
   fresh = export_model(fixture_xml(digits))
   with np.load(FIXTURE_NPZ[digits]) as z:
@@ -166,3 +167,30 @@ def test_hand23_has_myohand_width():
   assert types == {(0, 3), (3, 3)}           # plane-capsule, capsule-capsule
   # more slots than the top-k keeps: the cull is on the main path
   assert sum(collision._npoints(m, p) for p in collision.candidate_pairs(m)) > 24
+
+
+@pytest.mark.parametrize("name", sorted(LEGS))
+def test_legs_fixture_has_myoleg_names_and_width(name):
+  m = tmodel.load_npz(FIXTURE_NPZ[name])
+  assert (m.nq, m.nv) == (23, 22)
+  assert m.nu == m.na == (80 if name.startswith("legs80") else 16)
+  for side in "lr":
+    for j in ("hip_flexion", "hip_adduction", "hip_rotation", "knee_angle",
+              "knee_angle_translation", "ankle_angle", "subtalar_angle",
+              "mtp_angle"):
+      m.name2id("joint", f"{j}_{side}")
+    for b in ("femur", "tibia", "talus", "calcn", "toes"):
+      m.name2id("body", f"{b}_{side}")
+  for b in ("pelvis", "torso"):
+    m.name2id("body", b)
+  # two knee couplings, four touch sensors, a 100 x 100 field, four keys
+  assert m.neq == 2 and list(m.eq_type) == [tmodel.EqType.JOINT] * 2
+  assert sorted(m.names["sensor"]) == ["l_foot", "l_toes", "r_foot",
+                                       "r_toes"]
+  assert (m.nhfield, int(m.hfield_nrow[0]), int(m.hfield_ncol[0])) == (
+      1, 100, 100)
+  assert len(m.hfield_data) == 10000 and len(m.key_qpos) == 4
+  assert m.nmocap == (1 if name.endswith("chasetag") else 0)
+  # the equality rows and the hfield pairs build
+  dm = tmodel.DeviceModel(m, torch.float64, "cpu")
+  assert collision.collision_spec(dm) is not None

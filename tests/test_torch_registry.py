@@ -22,6 +22,9 @@ from myosuite_mjx_tpu_torch.envs.pen import PenTwirlFixedEnv, PenTwirlRandomEnv
 from myosuite_mjx_tpu_torch.envs.pose import PoseEnv
 from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
 from myosuite_mjx_tpu_torch.envs.reorient import ReorientEnv
+from myosuite_mjx_tpu_torch.envs.chasetag import ChaseTagEnv
+from myosuite_mjx_tpu_torch.envs.walk import (LegReachEnv, TerrainWalkEnv,
+                                              WalkEnv)
 
 BASE = {"model_path": "x.npz", "frame_skip": 10,
         "target_reach_range": {"THtip": ((0, 0, 0), (1, 1, 1)),
@@ -128,6 +131,19 @@ TASKS = {
 }
 
 
+# the leg tasks -> (class, horizon, frame_skip, nv); on legs80 and legs16
+LEG_TASKS = {
+    "StandRandom": (LegReachEnv, 150, 10, 22),
+    "Walk": (WalkEnv, 1000, 10, 22),
+    "RoughTerrainWalk": (TerrainWalkEnv, 1000, 10, 22),
+    "HillyTerrainWalk": (TerrainWalkEnv, 1000, 10, 22),
+    "StairTerrainWalk": (TerrainWalkEnv, 1000, 10, 22),
+    "ChaseTagP1": (ChaseTagEnv, 2000, 10, 22),
+    "ChaseTagP2": (ChaseTagEnv, 2000, 10, 22),
+}
+ALL_TASKS = {**TASKS, **LEG_TASKS}
+
+
 def _task(env_id: str) -> str:
   """The task of an id: hand23SarcObjHoldFixed-v0 -> ObjHoldFixed."""
   task = env_id[6:-3]
@@ -142,15 +158,22 @@ def test_the_registered_ids():
   # the die reorientation ids take no condition variants (MyoChallenge)
   want |= {f"{h}{t}-v0" for h in ("hand11", "hand23") for t in TASKS
            if t.startswith("Die")}
-  assert set(ids) == want and len(ids) == 18 + 36 + 6
+  # the leg ids: Sarc and Fati variants of the stand and walk tasks, as the
+  # reference registers them; chase-tag (MyoChallenge) without
+  legs = [f"{g}{t}-v0" for g in ("legs16", "legs80") for t in LEG_TASKS
+          if not t.startswith("Chase")]
+  want |= {f"{b[:6]}{c}{b[6:]}" for b in legs for c in ("", "Sarc", "Fati")}
+  want |= {f"{g}{t}-v0" for g in ("legs16", "legs80") for t in LEG_TASKS
+           if t.startswith("Chase")}
+  assert set(ids) == want and len(ids) == 18 + 36 + 6 + 30 + 4
   assert not [i for i in ids if "Reaf" in i]
   assert registry.asset("hand23.npz").endswith(
       "myosuite_mjx_tpu_torch/assets/hand23.npz")
   for i in ids:
     cls, kw = registry._REGISTRY[i]
-    assert cls is TASKS[_task(i)][0], i
-    assert kw["horizon"] == TASKS[_task(i)][1], i
-    assert kw.get("frame_skip", 10) == TASKS[_task(i)][2], i
+    assert cls is ALL_TASKS[_task(i)][0], i
+    assert kw["horizon"] == ALL_TASKS[_task(i)][1], i
+    assert kw.get("frame_skip", 10) == ALL_TASKS[_task(i)][2], i
     if "Sarc" in i or "Fati" in i:
       assert kw["muscle_condition"] in ("sarcopenia", "fatigue"), i
   for name in ("make", "register", "register_env_variant", "registry_ids",
@@ -196,6 +219,50 @@ def test_every_id_constructs_and_hand11_ids_step(env_id):
   assert env.horizon == TASKS[_task(env_id)][1]
   if env_id.startswith("hand23"):
     assert env.model.nv == TASKS[_task(env_id)][3]
+    return
+  g = torch.Generator().manual_seed(0)
+  st = env.reset(2, "cpu", g)
+  for _ in range(2):
+    st = env.autoreset_step(st, torch.full((2, env.action_dim), 0.5,
+                                           dtype=torch.float64), g)
+  assert st.obs.shape[0] == 2 and bool(torch.isfinite(st.obs).all())
+  if "Fati" in env_id:
+    assert "fatigue" in st.aux
+
+
+def test_the_leg_ids_take_the_references_kwargs():
+  _, kw = registry._REGISTRY["legs80StandRandom-v0"]
+  assert kw["joint_random_range"] == (-0.2, 0.2) and kw["far_th"] == 0.44
+  assert kw["target_reach_range"] == {
+      "pelvis": ((-0.05, -0.05, 0), (0.05, 0.05, 0))}
+  for tid, terrain, variant in (("Walk", None, None),
+                                ("RoughTerrainWalk", "rough", None),
+                                ("HillyTerrainWalk", "hilly", "fixed"),
+                                ("StairTerrainWalk", "stairs", "fixed")):
+    _, kw = registry._REGISTRY[f"legs80{tid}-v0"]
+    assert (kw["min_height"], kw["max_rot"], kw["hip_period"]) == (
+        0.8, 0.8, 100)
+    assert kw["reset_type"] == "random" and kw["target_y_vel"] == 1.2
+    assert kw.get("terrain") == terrain and kw.get("variant") == variant
+    assert kw["model_path"].endswith("legs80.npz")
+  _, p1 = registry._REGISTRY["legs16ChaseTagP1-v0"]
+  _, p2 = registry._REGISTRY["legs16ChaseTagP2-v0"]
+  assert (p1["terrain"], p1["task_choice"]) == ("FLAT", "CHASE")
+  assert (p2["terrain"], p2["task_choice"]) == ("random", "random")
+  assert (p2["hills_range"], p2["rough_range"], p2["relief_range"]) == (
+      (0.03, 0.23), (0.05, 0.1), (0.1, 0.3))
+  assert p2["random_vel_range"] == (-2, 2)
+  assert p1["model_path"].endswith("legs16_chasetag.npz")
+
+
+@pytest.mark.parametrize("env_id", [i for i in sorted(
+    registry._REGISTRY) if i.startswith(("legs16", "legs80"))])
+def test_every_leg_id_constructs_and_legs16_ids_step(env_id):
+  env = envs.make(env_id, cache=False, dtype=torch.float64)
+  assert env.horizon == LEG_TASKS[_task(env_id)][1]
+  assert env.model.nv == 22
+  assert env.action_dim == (80 if env_id.startswith("legs80") else 16)
+  if env_id.startswith("legs80"):
     return
   g = torch.Generator().manual_seed(0)
   st = env.reset(2, "cpu", g)

@@ -55,19 +55,32 @@ OBJECTS = ("key", "hold", "pen", "die")
 OBJECT_NPZ = {(obj, digits): os.path.join(
     ASSETS, f"hand{11 if digits == 2 else 23}_{obj}.npz")
               for obj in OBJECTS for digits in (2, 5)}
-# every checked-in fixture: the hands by digit count, "free", "prims" and
-# the object scenes as "<object><digits>" (e.g. "key2")
+# the two-leg scenes by name: legs80 / legs16, plain and with the
+# chase-tag opponent
+LEGS = {"legs80": (40, False), "legs80_chasetag": (40, True),
+        "legs16": (8, False), "legs16_chasetag": (8, True)}
+LEGS_NPZ = {name: os.path.join(ASSETS, f"{name}.npz") for name in LEGS}
+# every checked-in fixture: the hands by digit count, "free", "prims", the
+# object scenes as "<object><digits>" (e.g. "key2"), the leg scenes and
+# "plate"
+# the sensor tests' plate scene
+PLATE_NPZ = os.path.join(ASSETS, "plate.npz")
 FIXTURE_NPZ = {**NPZ, "free": FREE_NPZ, "prims": PRIMS_NPZ,
                **{f"{obj}{digits}": path
-                  for (obj, digits), path in OBJECT_NPZ.items()}}
+                  for (obj, digits), path in OBJECT_NPZ.items()},
+               **LEGS_NPZ, "plate": PLATE_NPZ}
 
 
 def fixture_xml(key) -> str:
   """The MJCF text of a ``FIXTURE_NPZ`` key."""
+  if key in LEGS:
+    return fixtures.legs_fixture_xml(*LEGS[key])
   if key == "free":
     return free_fixture_xml()
   if key == "prims":
     return fixtures.prims_fixture_xml()
+  if key == "plate":
+    return fixtures.plate_fixture_xml()
   if isinstance(key, str):
     return getattr(fixtures, f"{key[:-1]}_fixture_xml")(int(key[-1]))
   return hand_fixture_xml(key)
@@ -305,8 +318,8 @@ def main(argv=None) -> None:
   ap = argparse.ArgumentParser(description="Write the port's fixture models.")
   ap.add_argument("--export", action="store_true",
                   help="compile every fixture (hand11, hand23, free10, "
-                       "prims36 and the hand-object scenes) and write its "
-                       ".npz file")
+                       "prims36, the hand-object scenes, the leg scenes "
+                       "and the plate) and write its .npz file")
   ap.add_argument("--out-dir", default=os.path.normpath(ASSETS))
   args = ap.parse_args(argv)
   if not args.export:

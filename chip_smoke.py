@@ -65,7 +65,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    card (float32) and on the CPU (float64 and float32) with the same draws
    (see ``FLOAT32_MARGIN`` for the bounds); then the nominal, overlay and
    obs_noise envs at B = 4096 in turns (nominal, overlay, obs_noise,
-   obs_noise, overlay, nominal), 8 control steps each with staggered
+   obs_noise, overlay, nominal), 6 control steps each with staggered
    episode clocks, physics-steps/s beside phase 4's; fails if an env that
    did not reset lost its overlay or one that did kept it.
 
@@ -82,7 +82,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``SAC_REPLAY_BOUND`` of each net's change (the card's index_add is not
    deterministic, so bit equality is not expected);
 11. ``prove_sac`` on ``hand23ReachRandom-v0`` at its width (learning_starts
-   64), 384 env steps and one deterministic eval of 32 episodes x 100
+   64), 256 env steps and one deterministic eval of 32 episodes x 100
    steps, its JSON written to a temporary ``--out`` and printed; prints
    eval_success, eval_score and the seconds (no success level is a pass
    condition at this length);
@@ -105,7 +105,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the bodies rest and none is below the plane; (c) ``hand23KeyTurnRandom``,
    ``ObjHoldRandom``, ``PenTwirlRandom`` and ``DieReorientP1`` through
    ``envs.make``: 16 envs for 5 control steps against the CPU with the same
-   draws (phase 9's bounds), then B = 4096 for 20 control steps with every
+   draws (phase 9's bounds), then B = 4096 for 14 control steps with every
    episode clock crossing its horizon, printing physics-steps/s, SPD
    launches, active contacts, the share of envs whose object touches the
    hand and the contacts the top-k cull dropped, failing on a non-finite
@@ -124,7 +124,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the ball's weight within 1%; (c) ``legs80StandRandom``, ``Walk``,
    ``RoughTerrainWalk``, ``StairTerrainWalk`` and ``ChaseTagP2`` through
    ``envs.make``: 16 envs for 5 control steps against the CPU with the
-   same draws; (d) each at B = 4096 for 20 control steps with every
+   same draws; (d) each at B = 4096 for 14 control steps with every
    episode clock crossing its horizon, printing physics-steps/s, the
    ratio to phase 4, ms per control step, SPD launches, active contacts,
    the share of envs with a foot on the ground, the contacts the top-k
@@ -133,10 +133,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    floor or the terrain, no foot contact, or an env that did not
    autoreset; (e) ``tools/profile_step.py`` on ``legs80Walk-v0``, once.
 
-Every [B, n] at which phases 4-14 launch the kernel must be among those
-phase 3 checked. Phases 13 and 14's CPU runs at B = 16 are computed in
-one worker process (``cpu_references``), started after phase 2 and
-joined at phase 13, while the card runs phases 3-12.
+15. mesh hulls and the rest of the hand and arm tasks: (a) the four mesh
+   pairs (a plane, sphere, capsule or ellipsoid against the hulls scene's
+   convex hull) at B = 4096 on seeded poses, separated, shallow, deep and
+   inside the hull, the card's float32 against the port's float64 on the
+   CPU (13a's bounds and flip rule); (b) the ``hulls`` fixture (free
+   bodies dropping onto a convex mesh slab that lies on a plane) through
+   ``Physics``: 16 envs for 50 substeps against the CPU, then B = 4096 for
+   120 substeps, failing unless every mesh pair touches and the bodies
+   rest; (c) ``hand23BaodingP2-v1``, ``arm27RelocateP2-v0``,
+   ``arm27Bimanual-v0`` and ``hand23Reorient100-v0`` through ``envs.make``:
+   16 envs for 5 control steps against the CPU (14c's rule); (d) each at
+   B = 4096 for 20 control steps with every episode clock crossing its
+   horizon, printing physics-steps/s, the ratio to phase 4, ms per control
+   step, SPD launches, active contacts and the contacts the cull dropped,
+   failing on a non-finite output, a baoding ball that starts below
+   ``drop_th``, a SAR env without exactly one active object geom sized
+   from its table, a bimanual run in which no env reports a touching
+   class, a task that ends every env at its first step, or an env that did
+   not autoreset; (e) ``tools/profile_step.py`` on ``arm27RelocateP2-v0``,
+   once (its stages name each narrowphase group, the mesh ones too).
+
+Every [B, n] at which phases 4-15 launch the kernel must be among those
+phase 3 checked. Phases 13-15's CPU runs at B = 16 are computed in one
+worker process (``cpu_references``), started after phase 2 and joined at
+phase 13, while the card runs phases 3-12.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -171,7 +192,8 @@ FREE10 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "free10.npz")
 # n = 1; 10 is free10's nv (phase 12), 24 and 29 the hand-object scenes'
 # and 36 prims36's (phase 13), 22 the legs' and 7 the plate's (phase 14)
 PADDED_SIZES = (8, 16, 24, 32, 64)
-SIZES = (1, 4, 7, 8, 10, 11, 16, 17, 22, 23, 24, 29, 32, 33, 36, 64)
+SIZES = (1, 4, 7, 8, 10, 11, 16, 17, 22, 23, 24, 29, 32, 33, 35, 36, 50,
+         64)
 # the batches the paths launch the kernel at: the card side of phases 5 and
 # 7, the NPG eval, the PPO rollout, the NPG rollout and the main path
 PATH_BATCHES = (16, 32, 128, 512, B_MAIN)
@@ -252,7 +274,8 @@ OVERLAY_SPEC = dict(body_mass=(0.8, 1.2), body_pos=(-0.002, 0.002),
                     dof_damping=(0.5, 2.0), actuator_gain=(0.8, 1.2))
 PHASE9_ORDER = ("nominal", "overlay", "obs_noise", "obs_noise", "overlay",
                 "nominal")
-PHASE9_STEPS = 8
+# (8 until PR 9; 6 keeps the whole command under 1,000 s with phase 15)
+PHASE9_STEPS = 6
 FLOAT32_MARGIN = 20
 # phase 10: the CLI on this task; SAC at the proof recipe's width, run
 # straight for CLI_SAC_ITERS iterations and in two legs split at
@@ -260,8 +283,9 @@ FLOAT32_MARGIN = 20
 CLI_ENV = "hand23ReachRandom-v0"
 CLI_SAC_ITERS = 6
 CLI_SAC_SPLIT = 3
-# phase 11: prove_sac's length (12 iterations and one eval)
-PROOF_STEPS = 384
+# phase 11: prove_sac's length (8 iterations and one eval; 12 until PR 9,
+# cut to keep the whole command under 1,000 s with phase 15)
+PROOF_STEPS = 256
 # phase 12: free10 at B = 16 for FREE_STEPS substeps, card float32 against
 # CPU float64. CPU float32 against float64 gave 3.1e-6 (qpos) and 8.1e-4
 # (qvel, of 9.3 peak); the bounds leave 25-30x. Then B_MAIN envs for
@@ -310,7 +334,8 @@ MANIP_OBJECT = {"hand23KeyTurnRandom-v0": "key",
                 "hand23ObjHoldRandom-v0": "object",
                 "hand23PenTwirlRandom-v0": "Object",
                 "hand23DieReorientP1-v0": "die"}
-MANIP_STEPS = 20
+# (20 until PR 9; 14 keeps the whole command under 1,000 s with phase 15)
+MANIP_STEPS = 14
 # 13d: the CLI's SAC at the proof recipe's width on the hold task
 MANIP_TRAIN_ENV = "hand23ObjHoldRandom-v0"
 MANIP_SAC_ITERS = 6
@@ -346,11 +371,28 @@ PLATE_WEIGHT = (0.5 + 0.2) * 9.81
 LEG_TASKS = ("legs80StandRandom-v0", "legs80Walk-v0",
              "legs80RoughTerrainWalk-v0", "legs80StairTerrainWalk-v0",
              "legs80ChaseTagP2-v0")
-LEG_STEPS = 20
+# (20 until PR 9; 14 keeps the whole command under 1,000 s with phase 15)
+LEG_STEPS = 14
 LEG_FLIP_SLACK = 0.125
 LEG_SENSORS = ("r_foot", "r_toes", "l_foot", "l_toes")
 # 14e: tools/profile_step.py on this task, once
 PROFILE_ENV = "legs80Walk-v0"
+
+# phase 15: mesh hulls and the rest of the hand and arm tasks. 15a runs the
+# four mesh pairs on seeded poses against the hulls scene's hull with 13a's
+# bounds and flip rule; 15b the hulls scene through Physics (free bodies
+# dropping onto a convex mesh slab), 16 x HULLS_STEPS against the CPU, then
+# B_MAIN x HULLS_WINDOW, failing unless the bodies rest; 15c-d the tasks
+# below, 16 x 5 steps against the CPU (14c's rule), then B_MAIN x
+# HAND_ARM_STEPS control steps; 15e profile_step on PROFILE_ARM_ENV.
+HULLS = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "hulls.npz")
+HULLS_STEPS = 50
+HULLS_WINDOW = 120
+HULLS_REST = 0.05
+HAND_ARM_TASKS = ("hand23BaodingP2-v1", "arm27RelocateP2-v0",
+                  "arm27Bimanual-v0", "hand23Reorient100-v0")
+HAND_ARM_STEPS = 20
+PROFILE_ARM_ENV = "arm27RelocateP2-v0"
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1678,12 +1720,13 @@ def _task_b16(task_id: str, device, dtype) -> dict:
 
 
 def cpu_references() -> dict:
-  """Phases 13 and 14's CPU side (13b's float64 run, 13c's and 14c's
-  float64 and float32 runs). ``main`` computes it in a worker process
-  while the card runs the earlier phases."""
+  """Phases 13-15's CPU side (13b's and 15b's float64 runs, 13c's, 14c's
+  and 15c's float64 and float32 runs). ``main`` computes it in a worker
+  process while the card runs the earlier phases."""
   torch.set_num_threads(2)
-  out = {"prims": _prims_b16("cpu", torch.float64)}
-  for task_id in MANIP_TASKS + LEG_TASKS:
+  out = {"prims": _prims_b16("cpu", torch.float64),
+         "hulls": _hulls_b16("cpu", torch.float64)}
+  for task_id in MANIP_TASKS + LEG_TASKS + HAND_ARM_TASKS:
     for dtype in (torch.float64, torch.float32):
       out[task_id, dtype] = _task_b16(task_id, "cpu", dtype)
   return out
@@ -2217,6 +2260,356 @@ def phase_legs(phase4_rate: float, cpu_refs=None) -> dict:
   return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: mesh hulls and the rest of the hand and arm tasks
+# ---------------------------------------------------------------------------
+
+
+def _mesh_cases(t1: int, verts: np.ndarray, n: int, seed: int = 0):
+  """(p1, m1, s1, p2, m2, s2) as float64 numpy [n, ...] for geom1 of type
+  ``t1`` against a hull with vertices ``verts`` (geom2): a quarter each
+  separated, shallow, deep and with geom1's centre inside the hull. geom1
+  sits along a random direction from the hull (above a plane's normal) at
+  a share of the summed support extents."""
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  rng = np.random.default_rng(seed)
+  out, k = [], n // 4
+  for share, plane_share in ((1.4, 1.4), (0.93, 0.93), (0.5, 0.3),
+                             (0.1, -0.4)):
+    m1, m2 = _rotations(rng, k), _rotations(rng, k)
+    s1 = rng.uniform(0.005, 0.02, (k, 3))
+    if t1 == T.SPHERE:
+      s1[:, 1:] = 0.0
+    if t1 == T.CAPSULE:
+      s1[:, 1] = rng.uniform(0.01, 0.05, k)
+      s1[:, 2] = 0.0
+    p2 = rng.uniform(-0.05, 0.05, (k, 3))
+    if t1 == T.PLANE:
+      u = -m1[:, :, 2]
+      hull = (np.einsum("nij,vj->nvi", m2, verts) * -u[:, None]).sum(-1)
+      p1 = p2 + plane_share * hull.max(-1)[:, None] * u
+    else:
+      u = rng.normal(size=(k, 3))
+      u /= np.linalg.norm(u, axis=-1, keepdims=True)
+      hull = (np.einsum("nij,vj->nvi", m2, verts) * u[:, None]).sum(-1)
+      d = np.einsum("nji,nj->ni", m1, -u)
+      ext = (s1[:, 0] if t1 == T.SPHERE else
+             s1[:, 0] + s1[:, 1] * np.abs(d[:, 2]) if t1 == T.CAPSULE else
+             np.linalg.norm(s1 * d, axis=-1))
+      p1 = p2 + (share * (hull.max(-1) + ext))[:, None] * u
+    out.append((p1, m1, s1, p2, m2, np.zeros((k, 3))))
+  return tuple(np.concatenate(x) for x in zip(*out))
+
+
+def _mesh_narrow(t1: int, cases, device, dtype):
+  from myosuite_mjx_tpu_torch.engine import api, collision
+  dm = api.load(HULLS, dtype, device).device_model
+  args = [torch.as_tensor(a, dtype=dtype, device=device) for a in cases]
+  dist, pos, n = collision._mesh_fn(t1, collision._hull(dm, 0))(*args)
+  return [x.double().cpu().numpy() for x in (dist, pos, n.expand(pos.shape))]
+
+
+def phase_mesh_pairs() -> dict:
+  """15a: the mesh pairs at B_MAIN, card float32 against CPU float64
+  (13a's bounds and flip rule)."""
+  from myosuite_mjx_tpu_torch.engine import api, collision
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  keys = tuple(PAIR_FLIP)
+  verts = np.asarray(api.load(HULLS, torch.float64,
+                              "cpu").model.mesh_hull_verts[0])
+  for types in sorted(collision.MESH):
+    cases = _mesh_cases(types[0], verts, B_MAIN, seed=int(types[0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = _mesh_narrow(types[0], cases, DEVICE, torch.float32)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = _mesh_narrow(types[0], cases, "cpu", torch.float64)
+    cpu32 = _mesh_narrow(types[0], cases, "cpu", torch.float32)
+
+    def lane_errs(out):
+      return {k: np.abs((a - b).reshape(B_MAIN, -1)).max(-1)
+              for k, a, b in zip(keys, out, ref)}
+
+    def flipped(e):
+      return float(np.any([e[k] > PAIR_FLIP[k] for k in keys], 0).mean())
+
+    e, e32 = lane_errs(card), lane_errs(cpu32)
+    med = {k: float(np.median(e[k])) for k in keys}
+    flips, flips32 = flipped(e), flipped(e32)
+    finite = all(np.isfinite(x).all() for x in card)
+    good = (finite and flips <= flips32 + PAIR_FLIP_SLACK
+            and all(med[k] <= PAIR_MEDIAN_BOUND[k] for k in keys))
+    name = f"{T(types[0]).name}-{T(types[1]).name}"
+    _say(f"mesh pairs {name} B={B_MAIN} x {card[0].shape[-1]} points "
+         f"against a hull of {len(verts)} vertices, card float32 vs cpu "
+         f"float64: median lane " + ", ".join(f"{k} {med[k]:.2e}"
+                                             for k in keys)
+         + "; max " + ", ".join(f"{k} {float(e[k].max()):.2e}" for k in keys)
+         + f"; flipped lanes {flips:.4f} (cpu float32 {flips32:.4f}); "
+         f"touching lanes {int((ref[0].min(-1) < 0).sum())}; {ms:.1f} ms "
+         f"{'ok' if good else 'FAIL'}")
+    if not good:
+      raise AssertionError(f"mesh pair {name}: card and CPU disagree, or "
+                           f"non-finite")
+  return {}
+
+
+def _hulls_start(phys, batch: int):
+  """``batch`` hulls envs: each body's start moved by up to 3 mm, small
+  random velocities (0.02 m/s or rad/s)."""
+  rng = np.random.default_rng(1)
+  d = phys.make_data(batch)
+  qpos = d.qpos.double().cpu().numpy()
+  for b in range(phys.model.nq // 7):
+    qpos[:, 7 * b:7 * b + 3] += rng.uniform(-0.003, 0.003, (batch, 3))
+  qvel = rng.normal(scale=0.02, size=(batch, phys.model.nv))
+  t = lambda x: torch.as_tensor(x, dtype=phys.dtype, device=phys.device)
+  return d.replace(qpos=t(qpos), qvel=t(qvel))
+
+
+def _hulls_b16(device, dtype) -> dict:
+  """The hulls scene's 16 envs after HULLS_STEPS substeps: qpos, qvel."""
+  from myosuite_mjx_tpu_torch.engine import api
+  phys = api.load(HULLS, dtype, device)
+  d = _hulls_start(phys, 16)
+  for _ in range(HULLS_STEPS):
+    d = phys.step(d)
+  return {f: getattr(d, f).double().cpu().numpy() for f in FREE_CPU_BOUND}
+
+
+def phase_hulls(refs: dict | None = None) -> dict:
+  """15b: the mesh pairs in dynamics through ``Physics`` on the hulls
+  scene; ``refs`` is ``cpu_references()`` (computed here without it)."""
+  from myosuite_mjx_tpu_torch.engine import api, collision
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  card = _hulls_b16(DEVICE, torch.float32)
+  ref = refs["hulls"] if refs else _hulls_b16("cpu", torch.float64)
+  for f, bound in FREE_CPU_BOUND.items():
+    err = np.abs(card[f] - ref[f]).max(-1)
+    worst, median = float(err.max()), float(np.median(err))
+    ok = worst <= bound
+    _say(f"hulls B=16, {HULLS_STEPS} substeps, card float32 vs cpu "
+         f"float64, {f}: max abs err worst env {worst:.3e}, median env "
+         f"{median:.3e} (bound {bound:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"hulls: card and CPU disagree on {f}")
+
+  phys = api.load(HULLS, torch.float32, DEVICE)
+  m = phys.model
+  spec = collision.collision_spec(phys.device_model)
+  mesh_groups = [g for g in spec.groups if g.hull is not None]
+  d = _hulls_start(phys, B_MAIN)
+  advance = phys.step_n(10)
+  d = advance(d)
+  touched = {tuple(g.types): False for g in mesh_groups}
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(HULLS_WINDOW // 10 - 1):
+    d = advance(d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  rate = (HULLS_WINDOW - 10) * B_MAIN / seconds
+  for g in mesh_groups:
+    dist, _, _ = collision.group_fn(g, d)(
+        d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1],
+        g.size1.expand(B_MAIN, -1, -1), d.geom_xpos[:, g.g2],
+        d.geom_xmat[:, g.g2], g.size2.expand(B_MAIN, -1, -1))
+    touched[tuple(g.types)] = float((dist < 0).any(-1).any(-1).float().mean())
+  nbody = m.nq // 7
+  speed = d.qvel.reshape(B_MAIN, nbody, 6).abs().amax(-1)
+  # the geoms' centres (a mesh geom's is its centroid; the slab's body
+  # origin is its bottom face)
+  height = d.geom_xpos[:, np.asarray(m.geom_bodyid) > 0, 2]
+  active = (d.contact.dist < 0).sum(-1)
+  median = float(speed.amax(-1).median())
+  lowest = float(height.min())
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  _say(f"hulls B={B_MAIN}: {HULLS_WINDOW} substeps, {HULLS_WINDOW - 10} "
+       f"timed in {seconds:.3f} s: {rate:.1f} physics-steps/s "
+       f"({seconds / (HULLS_WINDOW - 10) * 1e3:.1f} ms per substep); "
+       f"active contacts per env {float(active.float().mean()):.3f}, "
+       f"dropped {float(d.ncon_dropped.float().mean()):.3f} per env; share "
+       f"of envs touching per mesh pair at the end "
+       + ", ".join(f"{T(t[0]).name}-MESH {v:.4f}"
+                   for t, v in sorted(touched.items()))
+       + f"; fastest body per env, median {median:.4f} (bound {HULLS_REST});"
+       f" lowest geom centre {lowest:.4f}; spd_solve launches "
+       f"{cuda_linalg.spd_solve_cuda.launches}")
+  for name, x in (("qpos", d.qpos), ("qvel", d.qvel)):
+    if not bool(torch.isfinite(x).all()):
+      raise AssertionError(f"hulls: non-finite {name} at B={B_MAIN}")
+  if set(touched) != collision.MESH or not all(touched.values()):
+    raise AssertionError(f"hulls: a mesh pair never touched: {touched}")
+  if not (median <= HULLS_REST and lowest > 0.0):
+    raise AssertionError("hulls: the bodies did not come to rest, or one "
+                         "fell through the plane")
+  if cuda_linalg.spd_solve_cuda.launches <= 0:
+    raise AssertionError("phase 15b never launched the SPD kernel")
+  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+
+
+def _hand_arm_checks(env, st, task_id: str, first: bool) -> None:
+  """15d's task checks on a state: the baoding balls above ``drop_th``
+  (``first``: at the init), one active SAR object geom per env sized
+  from its table."""
+  if task_id.startswith("hand23Baoding") and first:
+    z = st.data.site_xpos[:, [env.object1_sid, env.object2_sid], 2]
+    low = float(z.min())
+    _say(f"hand-arm {task_id}: lowest ball at the init {low:.4f} m "
+         f"(drop_th {env.drop_th})")
+    if not low > env.drop_th:
+      raise AssertionError(f"{task_id}: a ball starts below drop_th")
+  if task_id.startswith("hand23Reorient"):
+    from myosuite_mjx_tpu_torch.envs import reorient_sar
+    sizes = st.data.overlay["geom_size"][:, env.obj_gids]      # [B, 4, 3]
+    active = (sizes > 1e-5).any(-1)
+    t = st.aux["type_idx"].long()
+    tables = [torch.as_tensor(x, dtype=sizes.dtype, device=sizes.device)
+              for x in reorient_sar.geometry_table(env.TABLE)]
+    own = sizes[torch.arange(len(t), device=t.device), t]
+    in_table = torch.zeros_like(t, dtype=torch.bool)
+    for i, tab in enumerate(tables):
+      hit = (own[:, None, :] == tab[None]).all(-1).any(-1)
+      in_table |= (t == i) & hit
+    one = (active.sum(-1) == 1) & active.gather(1, t[:, None])[:, 0]
+    if not bool(one.all() and in_table.all()):
+      raise AssertionError(f"{task_id}: not exactly one object geom active "
+                           f"per env with its table's size")
+
+
+def phase_hand_arm_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
+  """15c-d: the new hand and arm tasks through ``envs.make``; ``refs`` is
+  ``cpu_references()`` (computed here without it)."""
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  out = {}
+  for task_id in HAND_ARM_TASKS:
+    card = _task_b16(task_id, DEVICE, torch.float32)
+    if refs:
+      ref, cpu32 = refs[task_id, torch.float64], refs[task_id, torch.float32]
+    else:
+      ref = _task_b16(task_id, "cpu", torch.float64)
+      cpu32 = _task_b16(task_id, "cpu", torch.float32)
+    for f, bound in CARD_CPU_BOUND.items():
+      err = np.abs(card[f] - ref[f]).max(-1)
+      err32 = np.abs(cpu32[f] - ref[f]).max(-1)
+      median_bound = max(bound, FLOAT32_MARGIN * float(np.median(err32)))
+      median = float(np.median(err))
+      flips, flips32 = (err > median_bound).mean(), (err32 > median_bound
+                                                     ).mean()
+      ok = (median <= median_bound and flips <= flips32 + LEG_FLIP_SLACK
+            and np.isfinite(card[f]).all())
+      _say(f"hand-arm {task_id} B=16: card float32 vs cpu float64 after 5 "
+           f"steps, {f}: median env {median:.3e} (bound "
+           f"{median_bound:.3g}; cpu float32 {float(np.median(err32)):.3e}"
+           f"); envs past it {flips:.4f} (cpu float32 {flips32:.4f}, slack "
+           f"{LEG_FLIP_SLACK:g}); worst env {float(err.max()):.3e} (cpu "
+           f"float32 {float(err32.max()):.3e}) {'ok' if ok else 'FAIL'}")
+      if not ok:
+        raise AssertionError(f"{task_id}: card and CPU disagree on {f}")
+
+    env = _task_env(task_id)
+    m = env.model
+    benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    cuda_linalg.spd_solve_cuda.launches = 0
+    st = benv.init()
+    _hand_arm_checks(env, st, task_id, first=True)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    # every clock crosses the horizon once inside the window
+    st = st.replace(steps=env.horizon - torch.randint(
+        1, HAND_ARM_STEPS + 1, (B_MAIN,), generator=g, device=DEVICE,
+        dtype=torch.int32))
+    restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    touching = torch.zeros(5, device=DEVICE)
+    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    ended_first = None
+    t0 = None
+    for i in range(HAND_ARM_STEPS):
+      if i == WARMUP:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      action = torch.rand((B_MAIN, env.action_dim), generator=g,
+                          device=DEVICE)
+      st = benv.step(st, action)
+      if i == 0:
+        ended_first = float(st.info["terminated"].float().mean())
+      restarted |= st.info["terminated"] | st.info["truncated"]
+      dropped += st.data.ncon_dropped.sum()
+      if task_id.endswith("Bimanual-v0"):
+        touching += env._touching_vec(st.data).sum(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    timed = HAND_ARM_STEPS - WARMUP
+    rate = timed * B_MAIN * env.frame_skip / seconds
+    launches = cuda_linalg.spd_solve_cuda.launches
+    active = (st.data.contact.dist < 0).sum(-1).float()
+    _hand_arm_checks(env, st, task_id, first=False)
+    extra = ""
+    if task_id.endswith("Bimanual-v0"):
+      extra = ("; touching classes (arm, prosthesis, start, goal, other), "
+               "env-steps with the class on: "
+               + str([int(x) for x in touching.tolist()]))
+    _say(f"hand-arm {task_id} B={B_MAIN} (nv {m.nv}, nu {m.nu}, frame_skip "
+         f"{env.frame_skip}, horizon {env.horizon}): {HAND_ARM_STEPS} "
+         f"control steps, {timed} timed in {seconds:.3f} s: {rate:.1f} "
+         f"physics-steps/s, {rate / phase4_rate:.3f} of phase 4's "
+         f"{phase4_rate:.1f}, {seconds / timed * 1e3:.1f} ms per control "
+         f"step; spd_solve launches {launches} ({launches / HAND_ARM_STEPS:.1f}"
+         f" per control step); active contacts per env at the end "
+         f"{float(active.mean()):.3f}; dropped {int(dropped)} in all "
+         f"({int(dropped) / (HAND_ARM_STEPS * B_MAIN):.4f} per env and "
+         f"step); envs ended by the task at step 1 {ended_first:.4f}; "
+         f"autoreset {int(restarted.sum())} of {B_MAIN} envs{extra}")
+    for what, x in (("obs", st.obs), ("reward", st.reward),
+                    ("qpos", st.data.qpos)):
+      if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{task_id}: non-finite {what} at B={B_MAIN}")
+    if ended_first >= 1.0:
+      raise AssertionError(f"{task_id}: every env ended at step 1")
+    if task_id.endswith("Bimanual-v0") and not float(touching.sum()) > 0:
+      raise AssertionError(f"{task_id}: no env reported a touching class")
+    if not bool(restarted.all()) or bool((st.steps >= env.horizon).any()):
+      raise AssertionError(f"{task_id}: an env did not autoreset at its "
+                           f"horizon")
+    if launches <= 0:
+      raise AssertionError(f"{task_id} never launched the SPD kernel")
+    out[f"phase15_{task_id}_launches"] = launches
+  out["launches"] = sum(out.values())
+  return out
+
+
+def phase_arm_profile() -> dict:
+  """15e: ``tools/profile_step.py`` on PROFILE_ARM_ENV, in process."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.tools import profile_step
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  profile_step.main(["--env", PROFILE_ARM_ENV, "--steps", "1"])
+  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+
+
+def phase_hand_arm(phase4_rate: float, cpu_refs=None) -> dict:
+  """Phase 15: 15a-15e, each timed; ``cpu_refs`` is a future of
+  ``cpu_references()``."""
+  refs = cpu_refs.result() if cpu_refs is not None else None
+  out = {}
+  for part, fn, args in (("15a", phase_mesh_pairs, ()),
+                         ("15b", phase_hulls, (refs,)),
+                         ("15cd", phase_hand_arm_tasks, (phase4_rate, refs)),
+                         ("15e", phase_arm_profile, ())):
+    t0 = time.perf_counter()
+    res = fn(*args)
+    _say(f"phase {part}: {time.perf_counter() - t0:.1f} s")
+    if "launches" in res:
+      out[f"phase{part}_launches"] = res.pop("launches")
+    out.update(res)
+  return out
+
+
 @contextlib.contextmanager
 def _launch_shapes(shapes: set):
   """Record the [B, n] of every ``linalg.spd_solve`` call on the card made
@@ -2273,8 +2666,10 @@ def _main_phases(smi: str, cpu_refs) -> int:
                            main_path["physics_steps_per_s"], cpu_refs)
     legs = _timed_phase(14, phase_legs, main_path["physics_steps_per_s"],
                         cpu_refs)
+    hand_arm = _timed_phase(15, phase_hand_arm,
+                            main_path["physics_steps_per_s"], cpu_refs)
   unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
-  _say(f"spd_solve shapes launched in phases 4-14: {sorted(shapes)}; not "
+  _say(f"spd_solve shapes launched in phases 4-15: {sorted(shapes)}; not "
        f"held against the plain version in phase 3: {sorted(unchecked)}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
@@ -2286,7 +2681,7 @@ def _main_phases(smi: str, cpu_refs) -> int:
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
       "launches": main_path["launches"], **train, **sac, **conditions,
       **cli_run, **proof, "physics_launches": physics["physics_launches"],
-      **contact, **legs, **kernel}]}))
+      **contact, **legs, **hand_arm, **kernel}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

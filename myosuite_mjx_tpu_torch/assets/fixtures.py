@@ -48,6 +48,9 @@ _TURNED_HEIGHT = 0.09
 _PALM_BIT = 1 << 8
 _OBJECT_BIT = 1 << 9
 _DIGIT_BITS = sum(1 << (d + 1) for d in range(1, 6))
+# the arm scenes' nails and the prosthesis's fingers
+_NAIL_BIT = 1 << 10
+_PROSTHESIS_BIT = 1 << 11
 
 
 def _f(*xs: float) -> str:
@@ -77,7 +80,16 @@ def _bits(digit: int, distal: bool) -> tuple[int, int]:
   return contype | (1 if distal else 0), conaffinity
 
 
-def _thumb_body() -> str:
+def _nail(name: str, length: float, radius: float) -> str:
+  """A small ellipsoid nail on the dorsal side of a distal phalanx's tip;
+  it collides with the arm scenes' objects only."""
+  return (f'\n            <geom name="{name}" type="ellipsoid" '
+          f'pos="{_f(length - 0.004, 0, 0.7 * radius)}" '
+          f'size="{_f(0.005, 0.4 * radius + 0.001, 0.0015)}" '
+          f'contype="{_NAIL_BIT}" conaffinity="0"/>')
+
+
+def _thumb_body(nails: bool = False) -> str:
   l0, l1, l2 = _THUMB_LEN
   r = _THUMB_RADIUS
   ct0, ca0 = _bits(1, False)
@@ -108,7 +120,7 @@ def _thumb_body() -> str:
           <body name="thumb_dist" pos="{_f(l1, 0, 0)}">
             {_phalanx_inertial(0.007, l2, r * 0.9)}
             <joint name="ip_flexion" axis="0 1 0.1" range="-0.9 0.8" damping="0.01" armature="0.0001"/>
-            {_capsule("thumb_dist_bone", l2, r * 0.9, ct2, ca2, margin=0.001)}
+            {_capsule("thumb_dist_bone", l2, r * 0.9, ct2, ca2, margin=0.001)}{_nail("thumb_nail", l2, r * 0.9) if nails else ""}
             <site name="THtip" pos="{_f(l2, 0, 0)}"/>
             <site name="thumb_dist_fpl" pos="0.01 0 -0.0092"/>
             <site name="thumb_dist_epl" pos="0.01 0 0.0091"/>
@@ -118,7 +130,7 @@ def _thumb_body() -> str:
 
 
 def _finger_body(k: int, y: float, r: float, l0: float, l1: float,
-                 l2: float) -> str:
+                 l2: float, nails: bool = False) -> str:
   """Finger k (2 = index ... 5 = little) on the palm."""
   digit = k
   ct, ca = _bits(digit, False)
@@ -147,7 +159,7 @@ def _finger_body(k: int, y: float, r: float, l0: float, l1: float,
           <body name="f{k}_dist" pos="{_f(l1, 0, 0)}">
             {_phalanx_inertial(0.005 + 0.0004 * k, l2, r * 0.9)}
             <joint name="md{k}_flexion" axis="0 1 0" range="-0.2 1.4" damping="0.008" armature="0.00008"/>
-            {_capsule(f"f{k}_dist_bone", l2, r * 0.9, ctd, cad, margin=0.001)}
+            {_capsule(f"f{k}_dist_bone", l2, r * 0.9, ctd, cad, margin=0.001)}{_nail(f"f{k}_nail", l2, r * 0.9) if nails else ""}
             <site name="{_TIPS[k]}" pos="{_f(l2, 0, 0)}"/>
             <site name="f{k}_dist_fdp" pos="0.009 0 -0.0093"/>
             <site name="f{k}_dist_edc" pos="0.009 0 0.0092"/>
@@ -208,21 +220,15 @@ def _muscle(name: str, force: float) -> str:
           f'ctrlrange="0 1"/>')
 
 
-def hand_fixture_xml(digits: int = 5, obj: str = "") -> str:
-  """MJCF text of the synthetic hand: a thumb plus ``digits - 1`` fingers.
-
-  With ``obj`` (worldbody MJCF of one object, see the object fixtures
-  below) the hand is the object scenes' variant: the forearm is raised
-  and turned thumb-up, as MyoHand's neutral posture, and pronation turns
-  the other way, so that pro_sup = -1.5 (the tasks' palm-up init) turns
-  the palm up; pro_sup's range reaches -1.6; a colliding pad lies on the
-  palm; ``obj`` follows the hand in the worldbody.
-  """
+def _hand_parts(digits: int, nails: bool = False):
+  """The hand's palm parts and digit bodies, its tendons and its muscles
+  (MJCF fragments)."""
   if not 1 <= digits <= 5:
     raise ValueError(f"digits must be in 1..5, got {digits}")
   fingers = [(k, *_FINGERS[k - 2]) for k in range(2, digits + 1)]
   palm_parts = "".join(_finger_palm_parts(k, y) for k, y, *_ in fingers)
-  finger_bodies = "".join(_finger_body(*f) for f in fingers)
+  bodies = _thumb_body(nails) + "".join(_finger_body(*f, nails=nails)
+                                        for f in fingers)
   tendons = (_WRIST_TENDONS + _THUMB_TENDONS
              + "".join(_finger_tendons(k) for k, *_ in fingers))
   muscles = [_muscle(n, 18.0 + 2.0 * i) for i, n in enumerate(_WRIST_MUSCLES)]
@@ -230,23 +236,22 @@ def hand_fixture_xml(digits: int = 5, obj: str = "") -> str:
   for k, *_ in fingers:
     muscles += [_muscle(f"{n}{k}", 7.0 + 0.6 * i + 0.2 * k)
                 for i, n in enumerate(_FINGER_MUSCLES)]
-  actuators = "\n    ".join(muscles)
-  if obj:
-    forearm = f'pos="0 0 {_TURNED_HEIGHT:.6g}" euler="1.5708 0 0"'
-    pro_sup = 'axis="-1 0 0" range="-1.6 1.0"'
-    palm_pad = f"""
-          <geom name="palm_pad" type="capsule" fromto="0.012 -0.01 -0.006 0.062 -0.01 -0.006" size="0.02" contype="{_PALM_BIT}" conaffinity="0"/>"""
-  else:
-    forearm = 'pos="0 0 0.052"'
-    pro_sup = 'axis="1 0 0" range="-1.0 1.0"'
-    palm_pad = ""
-  return f"""<mujoco model="hand_fixture_{digits}">
-  <compiler angle="radian" autolimits="true"/>
-  <option timestep="0.002" iterations="100" ls_iterations="50"/>
-  <worldbody>
-    <geom name="floor" type="plane" size="0.5 0.5 0.05" contype="1" conaffinity="1"/>
+  return palm_parts, bodies, tendons, "\n    ".join(muscles)
+
+
+def _forearm_body(digits: int, forearm: str, pro_sup: str, palm: str = "",
+                  inner: str = "", nails: bool = False,
+                  wrist_spring: str = "") -> tuple[str, str, str]:
+  """The forearm body (attributes ``forearm``) down to the fingertips, its
+  tendons and muscles. ``pro_sup`` holds the pronation joint's axis and
+  range, ``palm`` extra MJCF inside the palm body, ``inner`` extra MJCF
+  inside the forearm body (after its inertial), ``wrist_spring`` extra
+  attributes of the three wrist joints (a spring)."""
+  palm_parts, bodies, tendons, actuators = _hand_parts(digits, nails)
+  ws = f" {wrist_spring}" if wrist_spring else ""
+  body = f"""
     <body name="forearm" {forearm}>
-      <inertial pos="0.06 0 0" mass="0.3" diaginertia="0.00004 0.0004 0.0004"/>
+      <inertial pos="0.06 0 0" mass="0.3" diaginertia="0.00004 0.0004 0.0004"/>{inner}
       <geom name="forearm_bone" type="capsule" fromto="0 0 0 0.11 0 0" size="0.016" contype="0" conaffinity="0"/>
       <site name="fa_fcr" pos="0.03 0.0102 -0.0185"/>
       <site name="fa_fcu" pos="0.031 -0.0121 -0.0181"/>
@@ -260,7 +265,7 @@ def hand_fixture_xml(digits: int = 5, obj: str = "") -> str:
       <site name="fa_apl" pos="0.05 0.0203 0.0006"/>
       <body name="radius" pos="0 0 0">
         <inertial pos="0.07 0 0" mass="0.05" diaginertia="0.000006 0.00008 0.00008"/>
-        <joint name="pro_sup" {pro_sup} damping="0.03" armature="0.0004"/>
+        <joint name="pro_sup" {pro_sup} damping="0.03" armature="0.0004"{ws}/>
         <geom name="radius_bone" type="capsule" fromto="0.06 0 0 0.11 0 0" size="0.011" contype="0" conaffinity="0"/>
         <geom name="wrist_wrap" type="sphere" pos="0.118 0 -0.001" size="0.0082" contype="0" conaffinity="0"/>
         <geom name="wrist_wrap_d" type="sphere" pos="0.117 -0.004 0.002" size="0.0075" contype="0" conaffinity="0"/>
@@ -269,8 +274,8 @@ def hand_fixture_xml(digits: int = 5, obj: str = "") -> str:
         <site name="rad_sup" pos="0.081 -0.0006 -0.0128"/>
         <body name="palm" pos="0.12 0 0">
           <inertial pos="0.04 -0.004 0" mass="0.07" diaginertia="0.000012 0.00004 0.00005"/>
-          <joint name="deviation" axis="0 0 1" range="-0.25 0.35" damping="0.03" armature="0.0003"/>
-          <joint name="flexion" axis="0 1 0" range="-0.8 0.8" damping="0.03" armature="0.0003"/>
+          <joint name="deviation" axis="0 0 1" range="-0.25 0.35" damping="0.03" armature="0.0003"{ws}/>
+          <joint name="flexion" axis="0 1 0" range="-0.8 0.8" damping="0.03" armature="0.0003"{ws}/>
           <geom name="palm_bone" type="capsule" fromto="0.005 -0.01 0 0.07 -0.01 0" size="0.024" contype="0" conaffinity="0"/>
           <site name="palm_fcr" pos="0.025 0.012 -0.0122"/>
           <site name="palm_fcu" pos="0.02 -0.018 -0.0119"/>
@@ -283,18 +288,56 @@ def hand_fixture_xml(digits: int = 5, obj: str = "") -> str:
           <site name="palm_fpb" pos="0.026 0.005 -0.0131"/>
           <site name="palm_op" pos="0.019 0.001 -0.0135"/>
           <site name="palm_adp" pos="0.05 -0.01 -0.0122"/>
-          <site name="palm_fpb2" pos="0.03 0.0152 -0.0117"/>{palm_pad}{palm_parts}{_thumb_body()}{finger_bodies}
+          <site name="palm_fpb2" pos="0.03 0.0152 -0.0117"/>{palm}{palm_parts}{bodies}
         </body>
       </body>
-    </body>{obj}
+    </body>"""
+  return body, tendons, actuators
+
+
+def _scene(name: str, worldbody: str, tendons: str, actuators: str,
+           asset: str = "", extra: str = "") -> str:
+  """An MJCF document: the hand scenes' compiler and options, a floor
+  plane, then ``worldbody``; ``extra`` follows the actuators
+  (keyframes)."""
+  asset = f"\n  <asset>{asset}\n  </asset>" if asset else ""
+  return f"""<mujoco model="{name}">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>{asset}
+  <worldbody>
+    <geom name="floor" type="plane" size="0.5 0.5 0.05" contype="1" conaffinity="1"/>{worldbody}
   </worldbody>
   <tendon>{tendons}
   </tendon>
   <actuator>
     {actuators}
-  </actuator>
+  </actuator>{extra}
 </mujoco>
 """
+
+
+def hand_fixture_xml(digits: int = 5, obj: str = "") -> str:
+  """MJCF text of the synthetic hand: a thumb plus ``digits - 1`` fingers.
+
+  With ``obj`` (worldbody MJCF of one object, see the object fixtures
+  below) the hand is the object scenes' variant: the forearm is raised
+  and turned thumb-up, as MyoHand's neutral posture, and pronation turns
+  the other way, so that pro_sup = -1.5 (the tasks' palm-up init) turns
+  the palm up; pro_sup's range reaches -1.6; a colliding pad lies on the
+  palm; ``obj`` follows the hand in the worldbody.
+  """
+  if obj:
+    forearm = f'pos="0 0 {_TURNED_HEIGHT:.6g}" euler="1.5708 0 0"'
+    pro_sup = 'axis="-1 0 0" range="-1.6 1.0"'
+    palm_pad = f"""
+          <geom name="palm_pad" type="capsule" fromto="0.012 -0.01 -0.006 0.062 -0.01 -0.006" size="0.02" contype="{_PALM_BIT}" conaffinity="0"/>"""
+  else:
+    forearm = 'pos="0 0 0.052"'
+    pro_sup = 'axis="1 0 0" range="-1.0 1.0"'
+    palm_pad = ""
+  body, tendons, actuators = _forearm_body(digits, forearm, pro_sup,
+                                           palm_pad)
+  return _scene(f"hand_fixture_{digits}", body + obj, tendons, actuators)
 
 
 def free_fixture_xml() -> str:
@@ -781,3 +824,515 @@ def plate_fixture_xml() -> str:
   </sensor>
 </mujoco>
 """
+
+
+# the hull scene's slab: a rectangle below, a smaller quadrilateral turned
+# against it above (8 vertices, 12 hull triangles); its four lowest
+# vertices are the bottom face, so the plane-mesh pair's four contact
+# points hold it flat
+_SLAB_VERTS = ((-0.07, -0.05, 0.0), (0.07, -0.05, 0.0), (0.07, 0.05, 0.0),
+               (-0.07, 0.05, 0.0), (-0.05, -0.055, 0.025),
+               (0.055, -0.04, 0.025), (0.05, 0.055, 0.025),
+               (-0.06, 0.04, 0.025))
+
+
+def hulls_fixture_xml() -> str:
+  """Free bodies over a plane, on an inline convex mesh ("hulls", nv 24):
+
+  - ``slab``: a free body whose one geom is the mesh ``slab`` (see
+    ``_SLAB_VERTS``), lying on the plane (the plane-mesh pair);
+  - ``ball`` (a sphere), ``egg`` (an ellipsoid) and ``pill`` (a capsule),
+    free bodies that drop onto the slab's top (sphere-mesh,
+    ellipsoid-mesh); the capsule lands across the slab's edge and rests
+    with one end on the slab (capsule-mesh) and the other on the plane.
+
+  The three small bodies collide with the slab and the plane, not with
+  each other. The round bodies and the capsule have condim 6 (rolling
+  friction stops them), the slab condim 3. Every mesh pair of the
+  reference runs in dynamics, as ``prims_fixture_xml`` runs the primitive
+  pairs.
+  """
+  verts = " ".join(_f(*v) for v in _SLAB_VERTS)
+  roll = 'condim="6" friction="1 0.01 0.01" contype="4" conaffinity="3"'
+  return f"""<mujoco model="hulls_fixture">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>
+  <asset>
+    <mesh name="slab" vertex="{verts}"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="0.5 0.5 0.05" contype="1" conaffinity="1"/>
+    <body name="slab" pos="0 0 0.0005">
+      <freejoint/>
+      <geom name="slab" type="mesh" mesh="slab" density="800" contype="2" conaffinity="5"/>
+    </body>
+    <body name="ball" pos="0.012 0.006 0.055">
+      <freejoint/>
+      <geom name="ball" type="sphere" size="0.015" {roll}/>
+    </body>
+    <body name="egg" pos="-0.03 -0.012 0.05" euler="0 0 0.4">
+      <freejoint/>
+      <geom name="egg" type="ellipsoid" size="0.02 0.015 0.01" {roll}/>
+    </body>
+    <body name="pill" pos="0.072 0.012 0.05">
+      <freejoint/>
+      <geom name="pill" type="capsule" size="0.01 0.035" euler="0 1.5708 0" {roll}/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+
+# ---------------------------------------------------------------------------
+# the baoding scene: the hand palm up at qpos0 at MyoSuite's height, a
+# tray on the palm and two free balls in it
+# ---------------------------------------------------------------------------
+
+# the forearm's height: the balls rest near z = 1.29 m, above the task's
+# drop threshold of 1.25 m
+_BAODING_HEIGHT = 1.24
+# the tray's centre in the palm's frame (palmar side is -z), its half
+# width, and the balls' radius, mass and start offset from the centre
+_TRAY = (0.045, -0.01)
+_TRAY_HALF = 0.045
+_TRAY_SURFACE = -0.028
+_BALL = (0.0215, 0.043)
+_BALL_OFFSET = 0.025
+# the reference's centre of the target ellipse, in the target sites' frame
+_BAODING_CENTER = (-0.0125, -0.07)
+# a spring on the wrist's joints about the palm-up pose (N m / rad): the
+# balls sit above the pronation axis, so a limp wrist turns them off
+_WRIST_SPRING = 3.0
+
+
+def baoding_fixture_xml(digits: int = 5) -> str:
+  """The hand palm up at qpos0 (the forearm turned half a turn about its
+  long axis, at a height of ``_BAODING_HEIGHT``) with two free balls,
+  ``ball1`` and ``ball2`` (geoms and bodies of those names, sites
+  ``ball1_site`` and ``ball2_site``), the last two joints: hand23 gives nv
+  35, hand11 nv 23.
+
+  A tray on the palm (a flat pad and four low rims, colliding with the
+  balls only) holds them, and springs on the wrist's three joints hold
+  the palm up (``_WRIST_SPRING``); the balls collide with each other, the digits,
+  the tray and the floor. ``target1_site`` and ``target2_site`` sit on a
+  massless body welded to the palm, ``baoding_frame``, placed so that the
+  reference's ellipse centre (-0.0125, -0.07) in that frame is the tray's
+  centre; their z in that frame is the resting balls' height.
+  """
+  cx, cy = _BAODING_CENTER
+  tx, ty = _TRAY
+  h, r, z = _TRAY_HALF, 0.006, _TRAY_SURFACE
+  pad = f'contype="{_PALM_BIT}" conaffinity="0"'
+  rims = "".join(
+      f"""
+          <geom name="tray_rim{i}" type="capsule" fromto="{_f(*a, z - r, *b, z - r)}" size="{r:g}" {pad}/>"""
+      for i, (a, b) in enumerate((
+          ((tx - h, ty - h), (tx + h, ty - h)),
+          ((tx - h, ty + h), (tx + h, ty + h)),
+          ((tx - h, ty - h), (tx - h, ty + h)),
+          ((tx + h, ty - h), (tx + h, ty + h)))))
+  target_z = z - _BALL[0]
+  palm = f"""
+          <geom name="tray" type="box" pos="{_f(tx, ty, z + 0.004)}" size="{_f(h, h, 0.004)}" {pad}/>{rims}
+          <body name="baoding_frame" pos="{_f(tx - cx, ty - cy, 0)}">
+            <site name="target1_site" pos="{_f(cx + 0.025, cy, target_z)}" size="0.005"/>
+            <site name="target2_site" pos="{_f(cx - 0.025, cy, target_z)}" size="0.005"/>
+          </body>"""
+  body, tendons, actuators = _forearm_body(
+      digits, f'pos="0 0 {_BAODING_HEIGHT:g}" euler="3.14159265 0 0"',
+      'axis="1 0 0" range="-1.0 1.0"', palm,
+      wrist_spring=f'stiffness="{_WRIST_SPRING:g}"')
+  ball_bits = (f'contype="{_OBJECT_BIT}" '
+               f'conaffinity="{1 | _DIGIT_BITS | _PALM_BIT | _OBJECT_BIT}"')
+  balls = ""
+  for i, dy in ((1, _BALL_OFFSET), (2, -_BALL_OFFSET)):
+    # the palm's frame to the world's at qpos0: (0.12 + x, -y, H - z)
+    pos = (0.12 + tx, -(ty + dy), _BAODING_HEIGHT - (z - _BALL[0] - 0.003))
+    balls += f"""
+    <body name="ball{i}" pos="{_f(*pos)}">
+      <freejoint name="ball{i}_free"/>
+      <geom name="ball{i}" type="sphere" size="{_BALL[0]:g}" mass="{_BALL[1]:g}" {ball_bits}/>
+      <site name="ball{i}_site" size="0.005"/>
+    </body>"""
+  return _scene(f"baoding_fixture_{digits}", body + balls, tendons, actuators)
+
+
+# ---------------------------------------------------------------------------
+# the SAR scene: the object scenes' hand, moved so that its palm-up pad
+# lies over world x = 0, and a free object carrying one geom of each
+# candidate type
+# ---------------------------------------------------------------------------
+
+# the forearm's position; at pro_sup = -1.5 the pad's top lies near
+# (0.0, 0.010, 0.115)
+_SAR_FOREARM = (-0.16, 0.0, _TURNED_HEIGHT)
+# the object's start: over the pad, clear of the largest table size
+_SAR_START = (0.0, 0.005, 0.148)
+
+
+def sar_fixture_xml(digits: int = 5, condim: int = 4) -> str:
+  """The SAR reorientation scene on the hand of the object scenes (thumb
+  up, pronation reversed, a palm pad), moved so that the pad lies over
+  world x = 0: the task zeroes ``qpos[:-6]`` at init, which holds the
+  object's x as well (the reference's quirk), so the object starts at
+  x = 0. hand23: nv 29; hand11: nv 17.
+
+  - ``Object``: a free body lying along world x with the four candidate
+    geoms ``obj_caps``, ``obj_ellip``, ``obj_cyl`` and ``obj_box`` at its
+    centre, each of condim ``condim`` (4 for Geometries8/100, 3 for the
+    in- and out-of-distribution tasks), with the densities of the JAX
+    package's SAR scene (1500, then 1); the task's overlay sizes the
+    active one and shrinks the others to a point inside it;
+  - ``eps_ball``: the desired position, the object's start;
+  - ``target``: a static body 20 cm above with a non-colliding geom.
+  """
+  obj_bits = (f'condim="{condim}" contype="{_OBJECT_BIT}" '
+              f'conaffinity="{1 | _DIGIT_BITS | _PALM_BIT}"')
+  start = _f(*_SAR_START)
+  above = _f(_SAR_START[0], _SAR_START[1], _SAR_START[2] + 0.2)
+  obj = f"""
+    <site name="eps_ball" pos="{start}" size="0.075"/>
+    <body name="target" pos="{above}" euler="0 1.5708 0">
+      <geom name="target" type="ellipsoid" size="0.015 0.015 0.045" contype="0" conaffinity="0"/>
+    </body>
+    <body name="Object" pos="{start}" euler="0 1.5708 0">
+      <freejoint name="object_free"/>
+      <geom name="obj_caps" type="capsule" size="0.015 0.035" density="1500" {obj_bits}/>
+      <geom name="obj_ellip" type="ellipsoid" size="0.015 0.015 0.045" density="1" {obj_bits}/>
+      <geom name="obj_cyl" type="cylinder" size="0.015 0.035" density="1" {obj_bits}/>
+      <geom name="obj_box" type="box" size="0.017 0.017 0.017" density="1" {obj_bits}/>
+    </body>"""
+  palm_pad = f"""
+          <geom name="palm_pad" type="capsule" fromto="0.012 -0.01 -0.006 0.062 -0.01 -0.006" size="0.02" contype="{_PALM_BIT}" conaffinity="0"/>"""
+  body, tendons, actuators = _forearm_body(
+      digits, f'pos="{_f(*_SAR_FOREARM)}" euler="1.5708 0 0"',
+      'axis="-1 0 0" range="-1.6 1.0"', palm_pad)
+  return _scene(f"sar_fixture_{digits}_condim{condim}", body + obj, tendons,
+                actuators)
+
+
+# ---------------------------------------------------------------------------
+# the arm: the hand under three shoulder hinges and an elbow, with 24
+# muscles over the shoulder and the elbow (MyoArm's width)
+#
+# At qpos0 the upper arm hangs from the shoulder and the forearm points
+# forward (world -y), palm down. Frames: ``thorax`` (static) and
+# ``humerus`` are world-aligned at the shoulder; the forearm's x is world
+# -y, its y world +x, its z world +z (its origin is the elbow).
+# ---------------------------------------------------------------------------
+
+_HUMERUS_LEN = 0.30
+# muscle templates: name, force (N), then the path as (body, site pos)
+# points and ("wrap", geom, sidesite or "") entries
+_ARM_MUSCLES = (
+    ("DELT1", 500, (("thorax", (0.01, -0.035, 0.035)),
+                    ("wrap", "shoulder_wrap", "shoulder_front"),
+                    ("humerus", (0.005, -0.018, -0.13)))),
+    ("DELT2", 600, (("thorax", (0.04, 0.0, 0.035)),
+                    ("humerus", (0.02, 0.0, -0.12)))),
+    ("DELT3", 400, (("thorax", (0.01, 0.035, 0.035)),
+                    ("humerus", (0.005, 0.018, -0.13)))),
+    ("SUPSP", 300, (("thorax", (-0.03, 0.02, 0.05)),
+                    ("wrap", "shoulder_wrap", ""),
+                    ("humerus", (0.01, 0.005, 0.02)))),
+    ("INFSP", 500, (("thorax", (-0.05, 0.06, 0.0)),
+                    ("humerus", (0.01, 0.02, -0.01)))),
+    ("SUBSC", 600, (("thorax", (-0.05, -0.03, 0.0)),
+                    ("humerus", (-0.01, -0.02, -0.01)))),
+    ("TMIN", 200, (("thorax", (-0.03, 0.06, -0.05)),
+                   ("humerus", (0.012, 0.02, -0.03)))),
+    ("TMAJ", 400, (("thorax", (-0.06, 0.07, -0.1)),
+                   ("humerus", (-0.01, 0.01, -0.06)))),
+    ("PECM1", 500, (("thorax", (-0.1, -0.06, 0.0)),
+                    ("humerus", (0.0, -0.015, -0.05)))),
+    ("PECM2", 500, (("thorax", (-0.12, -0.07, -0.06)),
+                    ("humerus", (0.0, -0.015, -0.06)))),
+    ("PECM3", 400, (("thorax", (-0.1, -0.06, -0.12)),
+                    ("humerus", (0.0, -0.015, -0.07)))),
+    ("LAT1", 500, (("thorax", (-0.1, 0.08, -0.1)),
+                   ("humerus", (-0.01, 0.0, -0.05)))),
+    ("LAT2", 500, (("thorax", (-0.1, 0.08, -0.2)),
+                   ("humerus", (-0.01, 0.0, -0.055)))),
+    ("LAT3", 400, (("thorax", (-0.08, 0.07, -0.3)),
+                   ("humerus", (-0.01, 0.0, -0.06)))),
+    ("CORB", 200, (("thorax", (-0.02, -0.04, -0.01)),
+                   ("humerus", (-0.005, -0.01, -0.15)))),
+    ("BIClong", 600, (("thorax", (0.0, -0.03, 0.03)),
+                      ("humerus", (0.0, -0.025, -0.15)),
+                      ("forearm", (0.045, 0.0, 0.012)))),
+    ("BICshort", 500, (("thorax", (-0.02, -0.04, -0.01)),
+                       ("humerus", (-0.005, -0.025, -0.16)),
+                       ("forearm", (0.05, 0.004, 0.012)))),
+    ("TRIlong", 700, (("thorax", (-0.02, 0.03, -0.03)),
+                      ("humerus", (0.0, 0.025, -0.2)),
+                      ("wrap", "elbow_wrap", "elbow_back"),
+                      ("forearm", (-0.02, 0.0, 0.005)))),
+    ("TRIlat", 600, (("humerus", (0.01, 0.02, -0.08)),
+                     ("wrap", "elbow_wrap", "elbow_back"),
+                     ("forearm", (-0.02, 0.005, 0.0)))),
+    ("TRImed", 600, (("humerus", (-0.01, 0.02, -0.12)),
+                     ("wrap", "elbow_wrap", "elbow_back"),
+                     ("forearm", (-0.02, -0.005, 0.0)))),
+    ("BRA", 800, (("humerus", (0.0, -0.02, -0.18)),
+                  ("forearm", (0.03, 0.0, 0.01)))),
+    ("BRA2", 300, (("humerus", (0.0, -0.02, -0.25)),
+                   ("forearm", (0.06, 0.0, 0.01)))),
+    ("BRD", 300, (("humerus", (0.015, -0.015, -0.22)),
+                  ("forearm", (0.1, 0.01, 0.005)))),
+    ("ANC", 150, (("humerus", (0.01, 0.015, -0.29)),
+                  ("forearm", (0.02, 0.012, -0.003)))),
+)
+
+
+def _arm_muscles() -> tuple[dict, str, str]:
+  """The arm's muscle sites per body (name -> MJCF), its spatial tendons
+  and its muscles."""
+  sites: dict[str, list[str]] = {}
+  tendons, actuators = [], []
+  for name, force, path in _ARM_MUSCLES:
+    parts = []
+    for j, point in enumerate(path):
+      if point[0] == "wrap":
+        side = f' sidesite="{point[2]}"' if point[2] else ""
+        parts.append(f'<geom geom="{point[1]}"{side}/>')
+        continue
+      sname = f"{name}_p{j}"
+      sites.setdefault(point[0], []).append(
+          f'\n      <site name="{sname}" pos="{_f(*point[1])}"/>')
+      parts.append(f'<site site="{sname}"/>')
+    tendons.append(f'\n    <spatial name="{name}_t">{"".join(parts)}</spatial>')
+    actuators.append(_muscle(name, force))
+  return ({b: "".join(s) for b, s in sites.items()}, "".join(tendons),
+          "\n    ".join(actuators))
+
+
+def _arm(digits: int, shoulder: tuple, palm: str = "",
+         nails: bool = False) -> tuple[str, str, str]:
+  """The arm from the thorax down (bodies ``thorax``, ``humerus``,
+  ``forearm``, then the hand), its tendons and muscles: the 24 arm
+  muscles first, then the hand's. Joints ``elv_angle``, ``shoulder_elv``,
+  ``shoulder_rot`` (springs about qpos0 hold the pose the unactuated arm
+  starts in) and ``elbow_flexion`` (positive lifts the forearm)."""
+  sites, arm_tendons, arm_muscles = _arm_muscles()
+  elbow = f"""
+      <joint name="elbow_flexion" axis="0 -1 0" range="-0.6 1.8" damping="0.5" stiffness="15" armature="0.005"/>{sites["forearm"]}"""
+  hand, tendons, actuators = _forearm_body(
+      digits, f'pos="0 0 {-_HUMERUS_LEN:g}" euler="0 0 -1.5708"',
+      'axis="1 0 0" range="-1.0 1.0"', palm, inner=elbow, nails=nails)
+  body = f"""
+    <body name="thorax" pos="{_f(*shoulder)}">
+      <geom name="thorax_bone" type="capsule" fromto="-0.15 0.03 0 -0.15 0.03 -0.4" size="0.08" contype="0" conaffinity="0"/>
+      <geom name="shoulder_wrap" type="sphere" size="0.025" contype="0" conaffinity="0"/>
+      <site name="shoulder_front" pos="0 -0.045 0"/>{sites["thorax"]}
+    </body>
+    <body name="humerus" pos="{_f(*shoulder)}">
+      <inertial pos="0 0 -0.15" mass="1.8" diaginertia="0.012 0.012 0.002"/>
+      <joint name="elv_angle" axis="0 1 0" range="-1.0 1.0" damping="1" stiffness="30" armature="0.01"/>
+      <joint name="shoulder_elv" axis="-1 0 0" range="-0.8 2.0" damping="1" stiffness="30" armature="0.01"/>
+      <joint name="shoulder_rot" axis="0 0 1" range="-1.0 1.0" damping="1" stiffness="30" armature="0.01"/>
+      <geom name="humerus_bone" type="capsule" fromto="0 0 0 0 0 {-_HUMERUS_LEN:g}" size="0.022" contype="0" conaffinity="0"/>
+      <geom name="elbow_wrap" type="cylinder" pos="0 0 {-_HUMERUS_LEN:g}" zaxis="1 0 0" size="0.02 0.03" contype="0" conaffinity="0"/>
+      <site name="elbow_front" pos="0 -0.04 {-_HUMERUS_LEN:g}"/>
+      <site name="elbow_back" pos="0 0.04 {-_HUMERUS_LEN:g}"/>{sites["humerus"]}{hand.replace(chr(10), chr(10) + "  ")}
+    </body>"""
+  return body, arm_tendons + tendons, arm_muscles + "\n    " + actuators
+
+
+def arm_fixture_xml(digits: int = 5) -> str:
+  """The arm alone over the floor, shoulder at ``_RELOCATE_SHOULDER``:
+  digits 5 gives arm27 (nv 27, 63 muscles: hand23's 39 and 24 over the
+  shoulder and the elbow), digits 2 arm15 (nv 15, 45 muscles)."""
+  body, tendons, actuators = _arm(digits, _RELOCATE_SHOULDER)
+  return _scene(f"arm_fixture_{digits}", body, tendons, actuators)
+
+
+# ---------------------------------------------------------------------------
+# relocate: the arm over a table, a free object whose collision geom is a
+# convex mesh, MyoSuite's heights (the object spawns at z 1.0)
+# ---------------------------------------------------------------------------
+
+_RELOCATE_SHOULDER = (0.0, 0.05, 1.42)
+_TABLE_HEIGHT = 0.9695
+# the object: a square antiprism, 6 cm tall (8 vertices, 12 hull
+# triangles); its four lowest vertices are the bottom face
+_RELOCATE_OBJECT = ((0.025, 0.025, -0.03), (-0.025, 0.025, -0.03),
+                    (-0.025, -0.025, -0.03), (0.025, -0.025, -0.03),
+                    (0.03, 0.0, 0.03), (0.0, 0.03, 0.03), (-0.03, 0.0, 0.03),
+                    (0.0, -0.03, 0.03))
+_RELOCATE_START = (0.0, -0.25, 1.0)
+# the grasp site under the palm (palm frame)
+_S_GRASP = '\n          <site name="S_grasp" pos="0.04 -0.008 -0.03" size="0.01"/>'
+
+
+def relocate_fixture_xml(digits: int = 5) -> str:
+  """The relocate scene: the arm (``arm_fixture_xml``) with ellipsoid
+  nails on its distal phalanges, over a table plane at z 0.9695; ``Object``,
+  a free body (the last joint) whose one geom is an inline convex mesh
+  resting on the table at (0, -0.25, 1.0), so that the plane-mesh,
+  capsule-mesh (the digits) and ellipsoid-mesh (the nails) pairs are on
+  the task's path. Sites ``S_grasp`` (under the palm), ``object_o`` (the
+  object's origin) and, on a static ``target`` body, ``target_o``. Two
+  keyframes: key 0, and key 1 (the elbow a little flexed, the object
+  moved), which the task takes when it randomizes the object's start.
+  arm27: nv 33; arm15: nv 21.
+  """
+  body, tendons, actuators = _arm(digits, _RELOCATE_SHOULDER, palm=_S_GRASP,
+                                  nails=True)
+  verts = " ".join(_f(*v) for v in _RELOCATE_OBJECT)
+  obj_bits = (f'contype="{_OBJECT_BIT}" '
+              f'conaffinity="{1 | _DIGIT_BITS | _NAIL_BIT}"')
+  scene = f"""
+    <geom name="table" type="plane" pos="0 0 {_TABLE_HEIGHT:g}" size="0.6 0.6 0.05" contype="1" conaffinity="1"/>{body}
+    <body name="target" pos="0.1 -0.25 1.0">
+      <site name="target_o" size="0.01"/>
+    </body>
+    <body name="Object" pos="{_f(*_RELOCATE_START)}">
+      <freejoint name="object_free"/>
+      <geom name="object" type="mesh" mesh="object" mass="0.1" {obj_bits}/>
+      <site name="object_o" size="0.005"/>
+    </body>"""
+  nhand = 3 + 4 * digits
+  zeros = [0.0] * (4 + nhand)
+  key1 = [0.0, 0.0, 0.0, 0.1] + [0.0] * nhand
+  keys = "\n    ".join(
+      f'<key qpos="{_f(*q, *pos, 1, 0, 0, 0)}"/>'
+      for q, pos in ((zeros, _RELOCATE_START), (key1, (0.05, -0.22, 1.0))))
+  return _scene(f"relocate_fixture_{digits}", scene, tendons, actuators,
+                asset=f'\n    <mesh name="object" vertex="{verts}"/>',
+                extra=f"\n  <keyframe>\n    {keys}\n  </keyframe>")
+
+
+# ---------------------------------------------------------------------------
+# bimanual: the arm beside a prosthetic arm and hand, an object on a start
+# pillar and a goal pillar, at MyoChallenge's registered centres
+# ---------------------------------------------------------------------------
+
+_MYO_SHOULDER = (-0.4, -0.05, 1.45)
+_PROSTHESIS_SHOULDER = (0.4, -0.05, 1.45)
+_PILLARS = {"start": (-0.4, -0.25), "goal": (0.4, -0.25)}
+_PILLAR_TOP = 1.05
+# the object: a capsule lying along x on the start pillar
+_MANIP = (0.025, 0.04, 0.2)           # radius, half-length, mass
+# the prosthesis's finger joints per digit: a thumb of three, fingers of
+# two (the index, middle, ring and little in order)
+_PROSTHESIS_FINGERS = (("index", 0.02), ("middle", 0.0), ("ring", -0.02),
+                       ("little", -0.04))
+
+
+def _prosthesis(digits: int) -> tuple[str, str]:
+  """The prosthetic arm and hand under the ``prosthesis/`` prefix: three
+  shoulder hinges, an elbow, two wrist hinges, a thumb of three joints and
+  ``digits - 1`` fingers of two, every joint driven by a ``<position>``
+  actuator over its range (centred on 0, the pose the scene starts in):
+  17 joints at digits 5, 11 at 2. Its digits collide with the object
+  only. Returns (body, actuators)."""
+  P = "prosthesis/"
+  joints: list[tuple[str, float]] = []
+
+  def joint(name, axis, rng, kp, damping):
+    joints.append((name, kp))
+    return (f'\n{{pad}}<joint name="{P}{name}" axis="{axis}" '
+            f'range="{_f(-rng, rng)}" damping="{damping:g}" '
+            f'armature="0.005"/>')
+
+  bits = f'contype="{_PROSTHESIS_BIT}" conaffinity="0"'
+
+  def digit(name, pos, euler, lengths, names, depth):
+    pad = " " * depth
+    out = ""
+    for i, (length, jn) in enumerate(zip(lengths, names)):
+      p = pos if i == 0 else _f(lengths[i - 1], 0, 0)
+      e = f' euler="{euler}"' if i == 0 else ""
+      out += f"""
+{pad}<body name="{P}{name}{i}" pos="{p}"{e}>
+{pad}  <inertial pos="{_f(0.5 * length, 0, 0)}" mass="0.02" diaginertia="0.000004 0.000004 0.000001"/>{joint(jn, "0 1 0", 1.0, 2, 0.05).format(pad=pad + "  ")}
+{pad}  <geom name="{P}{name}{i}" type="capsule" fromto="{_f(0, 0, 0, length, 0, 0)}" size="0.009" {bits}/>"""
+      pad += "  "
+    for i in reversed(range(len(lengths))):
+      pad = " " * (depth + 2 * i)
+      out += f"\n{pad}</body>"
+    return out
+
+  arm = "".join(joint(n, a, 1.0, kp, dmp).format(pad="      ")
+                for n, a, kp, dmp in (("shoulder_elv", "-1 0 0", 80, 2),
+                                      ("elv_angle", "0 1 0", 80, 2),
+                                      ("shoulder_rot", "0 0 1", 80, 2)))
+  elbow = joint("elbow", "0 -1 0", 1.0, 40, 1).format(pad="        ")
+  wrist = "".join(joint(n, a, 1.0, 10, 0.3).format(pad="          ")
+                  for n, a in (("pro_sup", "1 0 0"), ("wrist_flexion",
+                                                      "0 1 0")))
+  thumb = digit("thumb", "0.02 0.035 -0.01", "0 0.3 0.8",
+                (0.035, 0.03, 0.025),
+                ("thumb_abd", "thumb_mcp", "thumb_ip"), 12)
+  fingers = "".join(
+      digit(n, _f(0.08, y, 0), "0 0 0", (0.045, 0.04), (f"{n}_mcp",
+                                                       f"{n}_pip"), 12)
+      for n, y in _PROSTHESIS_FINGERS[:digits - 1])
+  body = f"""
+    <body name="{P}humerus" pos="{_f(*_PROSTHESIS_SHOULDER)}">
+      <inertial pos="0 0 -0.15" mass="1.5" diaginertia="0.01 0.01 0.002"/>{arm}
+      <geom name="{P}humerus" type="capsule" fromto="0 0 0 0 0 {-_HUMERUS_LEN:g}" size="0.03" contype="0" conaffinity="0"/>
+      <body name="{P}forearm" pos="0 0 {-_HUMERUS_LEN:g}" euler="0 0 -1.5708">
+        <inertial pos="0.1 0 0" mass="0.8" diaginertia="0.001 0.004 0.004"/>{elbow}
+        <geom name="{P}forearm" type="capsule" fromto="0 0 0 0.22 0 0" size="0.025" contype="0" conaffinity="0"/>
+        <body name="{P}wrist" pos="0.22 0 0">
+          <inertial pos="0.02 0 0" mass="0.1" diaginertia="0.00005 0.00005 0.00005"/>{wrist}
+          <body name="{P}palm" pos="0.03 0 0">
+            <inertial pos="0.04 0 0" mass="0.3" diaginertia="0.0002 0.0004 0.0005"/>
+            <geom name="{P}palm" type="capsule" fromto="0.01 0 0 0.07 0 0" size="0.03" {bits}/>
+            <site name="{P}palm_thumb" pos="0.03 0.03 -0.02" size="0.005"/>
+            <site name="{P}palm_pinky" pos="0.03 -0.04 -0.02" size="0.005"/>{thumb}{fingers}
+          </body>
+        </body>
+      </body>
+    </body>"""
+  kp = {n: k for n, k in joints}
+  actuators = "\n    ".join(
+      f'<position name="{P}{n}" joint="{P}{n}" kp="{kp[n]:g}" '
+      f'ctrlrange="-1 1"/>' for n, _ in joints)
+  return body, actuators
+
+
+def bimanual_fixture_xml(digits: int = 5) -> str:
+  """The bimanual scene: the arm (``arm_fixture_xml``, no nails) with its
+  hand over the start pillar, a prosthetic arm and hand (``_prosthesis``)
+  over the goal pillar, ``manip_object`` (a free capsule, joint
+  ``manip_object/freejoint``, site ``touch_site``) lying on the ``start``
+  pillar, and the ``goal`` pillar, at the registered centres (-0.4, -0.25)
+  and (0.4, -0.25), their tops at 1.05 m. Bodies in the order the task's
+  contact classes need: the arm's, then the prosthesis's, then ``start``,
+  ``goal`` and ``manip_object``. Sites ``S_grasp``, the five tips
+  (``THtip`` ... ``LFtip``; with fewer than five digits the missing tips
+  sit on the palm at their knuckles), ``prosthesis/palm_thumb`` and
+  ``prosthesis/palm_pinky``.
+
+  nv: the arm's 27, the prosthesis's 17 and the object's 6, 50 at digits
+  5 (under the SPD kernel's 64); 15 + 11 + 6 = 32 at digits 2. MPL's own
+  joint count is not in the repository; 17 joints (arm 4, wrist 2, hand
+  11) is chosen to keep nv under 64. nu: 63 muscles and 17 position
+  actuators (45 and 11).
+  """
+  missing = "".join(
+      f'\n          <site name="{_TIPS[k]}" pos="{_f(0.08, _FINGERS[k - 2][0], 0)}"/>'
+      for k in range(digits + 1, 6))
+  arm, tendons, actuators = _arm(digits, _MYO_SHOULDER,
+                                 palm=_S_GRASP + missing)
+  pros, pros_actuators = _prosthesis(digits)
+  h = _PILLAR_TOP / 2
+  pillars = "".join(f"""
+    <body name="{name}" pos="{_f(x, y, h)}">
+      <geom name="{name}" type="box" size="{_f(0.04, 0.04, h)}" contype="1" conaffinity="0"/>
+    </body>""" for name, (x, y) in _PILLARS.items())
+  r, half, mass = _MANIP
+  sx, sy = _PILLARS["start"]
+  obj_bits = (f'contype="{_OBJECT_BIT}" '
+              f'conaffinity="{1 | _DIGIT_BITS | _PROSTHESIS_BIT}"')
+  obj = f"""
+    <body name="manip_object" pos="{_f(sx, sy, _PILLAR_TOP + r + 0.0005)}">
+      <freejoint name="manip_object/freejoint"/>
+      <geom name="manip_object" type="capsule" size="{_f(r, half)}" euler="0 1.5708 0" mass="{mass:g}" {obj_bits}/>
+      <site name="touch_site" size="0.01"/>
+    </body>"""
+  return _scene(f"bimanual_fixture_{digits}", arm + pros + pillars + obj,
+                tendons, actuators + "\n    " + pros_actuators)

@@ -11,9 +11,10 @@ the generic convex path (MPR penetration and alternating closest points)
 for the ellipsoid, cylinder and box cross pairs, with the reference's
 fixed trip counts, and the heightfield pairs (a sphere, or a capsule as
 three probe spheres, against the bilinear surface; per-env heights from
-``Data.overlay["hfield_data"]``). Mesh pairs are not ported: building the
-collision layout of a model with one raises ``NotImplementedError``
-naming the pair; no pair is ever skipped.
+``Data.overlay["hfield_data"]``), and the mesh pairs: a plane, sphere,
+capsule or ellipsoid against a mesh's convex hull (its triangles and face
+equations, precomputed on the host), grouped by mesh. Every pair type the
+reference supports is ported; no pair is ever skipped.
 """
 from __future__ import annotations
 
@@ -70,13 +71,13 @@ _SUPPORTED = {
     (GeomType.ELLIPSOID, GeomType.MESH),
 }
 
-# type pairs whose narrowphase is ported: every supported pair but the
-# mesh ones; ``_narrow_fn`` holds the primitive ones, ``_hfield_fn`` the
-# heightfield ones
-PORTED = {p for p in _SUPPORTED if GeomType.MESH not in p}
-PRIMITIVE = {p for p in PORTED if GeomType.HFIELD not in p}
-# where the port of the mesh pairs is queued
-_MESH_ITEM = "ROADMAP.md, Queue 1 item 4e (mesh hulls)"
+# type pairs whose narrowphase is ported: every supported pair.
+# ``_narrow_fn`` holds the primitive ones, ``_hfield_fn`` the heightfield
+# ones and ``_mesh_fn`` the mesh ones
+PORTED = set(_SUPPORTED)
+PRIMITIVE = {p for p in PORTED
+             if GeomType.HFIELD not in p and GeomType.MESH not in p}
+MESH = {p for p in PORTED if GeomType.MESH in p}
 
 
 def _ordered(m: Model, g1: int, g2: int) -> tuple[int, int] | None:
@@ -179,6 +180,7 @@ class _Group:
   size1: torch.Tensor    # [G, 3]
   size2: torch.Tensor
   hfield: "_HField | None" = None  # geom1's field, for the hfield pairs
+  hull: "_Hull | None" = None      # geom2's hull, for the mesh pairs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +191,16 @@ class _HField:
   ncol: int
   size: tuple            # (x, y, z) half-extents and height scale
   heights: torch.Tensor  # [nrow * ncol] the model's (a view of its buffer)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Hull:
+  """One mesh's convex hull in the mesh's frame: outward-wound triangles
+  [F, 3, 3], face equations [F, 4] (outward normal and offset: a point x
+  is inside where n . x + offset <= 0 for every face) and vertices [V, 3]."""
+  tris: torch.Tensor
+  eqs: torch.Tensor
+  verts: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,13 +223,14 @@ def _build_collision_spec(m: DeviceModel) -> _CollisionSpec | None:
   by_type: dict[tuple, list[CandidatePair]] = {}
   for p in pairs:
     key = (int(h.geom_type[p.g1]), int(h.geom_type[p.g2]))
-    if key not in PORTED:
-      names = {int(v): k for k, v in GeomType.__members__.items()}
-      raise NotImplementedError(
-          f"collision pair {names[key[0]]}-{names[key[1]]} (geoms {p.g1}, "
-          f"{p.g2}) has no narrowphase in the port yet; see {_MESH_ITEM}")
-    # the reference groups hfield pairs by field as well
-    dataid = int(h.geom_dataid[p.g1]) if key[0] == GeomType.HFIELD else -1
+    # the reference groups mesh pairs by geom2's mesh and hfield pairs by
+    # geom1's field: the sort key (t1, t2, dataid) sets the slot order
+    if key[1] == GeomType.MESH:
+      dataid = int(h.geom_dataid[p.g2])
+    elif key[0] == GeomType.HFIELD:
+      dataid = int(h.geom_dataid[p.g1])
+    else:
+      dataid = -1
     by_type.setdefault(key + (dataid,), []).append(p)
   condims = {p.condim for p in pairs}
   if condims - {1, 3, 4, 6}:
@@ -230,9 +243,12 @@ def _build_collision_spec(m: DeviceModel) -> _CollisionSpec | None:
     plist = by_type[key]
     g1 = [p.g1 for p in plist]
     g2 = [p.g2 for p in plist]
-    groups.append(_Group(key[:2], t(g1), t(g2), m.tensor(h.geom_size[g1]),
-                         m.tensor(h.geom_size[g2]),
-                         _hfield(m, key[2]) if key[2] >= 0 else None))
+    mesh = key[1] == GeomType.MESH
+    groups.append(_Group(
+        key[:2], t(g1), t(g2), m.tensor(h.geom_size[g1]),
+        m.tensor(h.geom_size[g2]),
+        hfield=_hfield(m, key[2]) if key[0] == GeomType.HFIELD else None,
+        hull=_hull(m, key[2]) if mesh else None))
     # slots are point-major then pair-major: [point0 of all pairs, ...]
     for _ in range(_npoints(h, plist[0])):
       for p in plist:
@@ -261,6 +277,29 @@ def _hfield(m: DeviceModel, dataid: int) -> _HField:
   return _HField(adr=adr, nrow=nrow, ncol=ncol,
                  size=tuple(float(x) for x in h.hfield_size[dataid, :3]),
                  heights=m.hfield_data[adr:adr + nrow * ncol])
+
+
+def hull_geometry(m: Model, dataid: int) -> tuple[np.ndarray, np.ndarray]:
+  """A mesh's hull triangles [F, 3, 3] wound outward about the centroid of
+  its hull vertices, and their face equations [F, 4] (float64 numpy), as
+  the reference computes them."""
+  tris = np.array(m.mesh_hull_tris[dataid], np.float64)
+  verts = np.array(m.mesh_hull_verts[dataid], np.float64)
+  centroid = verts.mean(axis=0)
+  a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+  n = np.cross(b - a, c - a)
+  n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-15)
+  flip = np.sum(n * (a - centroid), axis=-1) < 0
+  n[flip] = -n[flip]
+  tris[flip] = tris[flip][:, ::-1]
+  eqs = np.concatenate([n, -np.sum(n * a, axis=-1, keepdims=True)], axis=-1)
+  return tris, eqs
+
+
+def _hull(m: DeviceModel, dataid: int) -> _Hull:
+  tris, eqs = hull_geometry(m.host, dataid)
+  return _Hull(tris=m.tensor(tris), eqs=m.tensor(eqs),
+               verts=m.tensor(np.asarray(m.host.mesh_hull_verts[dataid])))
 
 
 # ---------------------------------------------------------------------------
@@ -970,6 +1009,168 @@ def _hfield_fn(t2: int, heights, field: _HField):
   raise NotImplementedError(f"hfield collision vs type {t2}")
 
 
+# ---------------------------------------------------------------------------
+# convex mesh hulls: exact point and segment queries over hull triangles.
+# A hull is shared by its whole group (one mesh), so its triangles [F, ...]
+# broadcast against the batch's points [..., 3].
+# ---------------------------------------------------------------------------
+
+
+def _closest_on_tri(p, a, b, c):
+  """The closest point on triangle abc to p (Ericson's regions, every
+  candidate evaluated and the region's selected, as the reference's).
+  Broadcasts over leading dims."""
+  ab = b - a
+  ac = c - a
+  ap = p - a
+  bp = p - b
+  cp = p - c
+  d1, d2 = _dot(ab, ap), _dot(ac, ap)
+  d3, d4 = _dot(ab, bp), _dot(ac, bp)
+  d5, d6 = _dot(ab, cp), _dot(ac, cp)
+  va = d3 * d6 - d5 * d4
+  vb = d5 * d2 - d1 * d6
+  vc = d1 * d4 - d3 * d2
+  denom = torch.clamp(va + vb + vc, min=_MINVAL)
+  pt = a + (vb / denom)[..., None] * ab + (vc / denom)[..., None] * ac
+  # edge and vertex regions, the reference's order of precedence
+  t_ab = torch.clamp(d1 / torch.clamp(d1 - d3, min=_MINVAL), 0, 1)
+  t_ac = torch.clamp(d2 / torch.clamp(d2 - d6, min=_MINVAL), 0, 1)
+  e43, e56 = d4 - d3, d5 - d6
+  t_bc = torch.clamp(e43 / torch.clamp(e43 + e56, min=_MINVAL), 0, 1)
+  pt = _where3((va <= 0) & (e43 >= 0) & (e56 >= 0),
+               b + t_bc[..., None] * (c - b), pt)
+  pt = _where3((vb <= 0) & (d2 >= 0) & (d6 <= 0), a + t_ac[..., None] * ac,
+               pt)
+  pt = _where3((vc <= 0) & (d1 >= 0) & (d3 <= 0), a + t_ab[..., None] * ab,
+               pt)
+  pt = _where3((d6 >= 0) & (d5 <= d6), c, pt)
+  pt = _where3((d3 >= 0) & (d4 <= d3), b, pt)
+  return _where3((d1 <= 0) & (d2 <= 0), a, pt)
+
+
+def _hull_sq_dists(p, tris):
+  """Squared distances [..., F] from p [..., 3] to every hull triangle,
+  and the closest points [..., F, 3]."""
+  q = p[..., None, :]
+  cps = _closest_on_tri(q, tris[:, 0], tris[:, 1], tris[:, 2])
+  return ((cps - q) ** 2).sum(-1), cps
+
+
+def _plane_dists(p, eqs):
+  """n . p + offset [..., F] of every face (positive outside)."""
+  return (p[..., None, :] * eqs[:, :3]).sum(-1) + eqs[:, 3]
+
+
+def _point_hull(p, tris, eqs):
+  """The hull's surface point, outward normal and signed distance for
+  local points p [..., 3]: outside, the closest point over the triangles;
+  inside, the projection onto the least deep face."""
+  d2, cps = _hull_sq_dists(p, tris)
+  k = torch.argmin(d2, dim=-1, keepdim=True)                  # [..., 1]
+  cp = torch.gather(cps, -2, k[..., None].expand(k.shape + (3,)))[..., 0, :]
+  d2min = torch.gather(d2, -1, k)[..., 0]
+  plane_d = _plane_dists(p, eqs)
+  inside = (plane_d <= 0).all(-1)
+  kf = torch.argmax(plane_d, dim=-1)                          # [...]
+  depth = torch.gather(plane_d, -1, kf[..., None])[..., 0]
+  n_in = eqs[:, :3][kf]
+  cp_in = p - depth[..., None] * n_in
+  n_out = _unit(p - cp)
+  surf = _where3(inside, cp_in, cp)
+  n = _where3(inside, n_in, n_out)
+  dist = torch.where(inside, depth, torch.sqrt(torch.clamp(d2min, min=0.0)))
+  return surf, n, dist
+
+
+def _point_hull_dist(p, tris, eqs):
+  """``_point_hull``'s signed distance alone (the same values)."""
+  d2, _ = _hull_sq_dists(p, tris)
+  depth = _plane_dists(p, eqs).amax(-1)
+  return torch.where(depth <= 0, depth,
+                     torch.sqrt(torch.clamp(d2.amin(-1), min=0.0)))
+
+
+def _sphere_hull(c1, r1, gpos, gmat, tris, eqs):
+  """Sphere (geom1) against a hull (geom2): (dist, pos, n), n from the
+  sphere into the hull."""
+  surf_l, n_l, dist_c = _point_hull(_mtv(gmat, c1 - gpos), tris, eqs)
+  n = -_mv(gmat, n_l)
+  surf_hull = gpos + _mv(gmat, surf_l)
+  surf_sph = c1 + n * r1[..., None]
+  return dist_c - r1, 0.5 * (surf_hull + surf_sph), n
+
+
+# the golden-section search of ``_capsule_hull``: its ratio and its fixed
+# trip count (no early exit)
+_GOLDEN = 0.6180339887498949
+_GOLDEN_TRIPS = 32
+
+
+def _capsule_hull(gpos1, gmat1, r1, h1, gpos2, gmat2, tris, eqs):
+  """Capsule (geom1) against a hull: a golden-section search over the
+  segment for the point nearest the hull, then that point as a sphere.
+  The two probes of each trip are evaluated as one batch."""
+  a, b = _capsule_ends(gpos1, gmat1, h1)
+  a_l = _mtv(gmat2, a - gpos2)
+  seg_l = _mtv(gmat2, b - gpos2) - a_l
+  lo = torch.zeros(a_l.shape[:-1], dtype=a_l.dtype, device=a_l.device)
+  hi = torch.ones_like(lo)
+  for _ in range(_GOLDEN_TRIPS):
+    m1 = hi - _GOLDEN * (hi - lo)
+    m2 = lo + _GOLDEN * (hi - lo)
+    t = torch.stack([m1, m2], -1)                             # [..., 2]
+    f = _point_hull_dist(a_l[..., None, :] + t[..., None] * seg_l[..., None, :],
+                         tris, eqs)
+    left = f[..., 0] < f[..., 1]
+    lo, hi = torch.where(left, lo, m1), torch.where(left, m2, hi)
+  t = 0.5 * (lo + hi)
+  return _sphere_hull(a + t[..., None] * (b - a), r1, gpos2, gmat2, tris,
+                      eqs)
+
+
+def _ellipsoid_hull(gpos1, gmat1, radii, gpos2, gmat2, tris, eqs):
+  """Ellipsoid (geom1) against a hull, approximate as the reference's: the
+  hull point nearest the ellipsoid's centre, then the exact distance from
+  that point to the ellipsoid; n from the ellipsoid into the hull."""
+  surf_l, _, _ = _point_hull(_mtv(gmat2, gpos1 - gpos2), tris, eqs)
+  hull_pt = gpos2 + _mv(gmat2, surf_l)
+  x, n_l, dist = _ellipsoid_surface_point(_mtv(gmat1, hull_pt - gpos1), radii)
+  surf_ell = gpos1 + _mv(gmat1, x)
+  return dist, 0.5 * (surf_ell + hull_pt), _mv(gmat1, n_l)
+
+
+def _plane_hull(ppos, pmat, gpos, gmat, verts):
+  """Plane against a hull: its 4 lowest vertices as contact points (ties
+  by vertex order, as ``lax.top_k``)."""
+  n = pmat[..., :, 2]
+  world = gpos[..., None, :] + _mv(gmat[..., None, :, :], verts)  # [..., V, 3]
+  heights = _dot(world - ppos[..., None, :], n[..., None, :])     # [..., V]
+  idx = torch.sort(heights, dim=-1, stable=True).indices[..., :4]
+  dist = torch.gather(heights, -1, idx)
+  w = torch.gather(world, -2, idx[..., None].expand(idx.shape + (3,)))
+  return dist, w - 0.5 * dist[..., None] * n[..., None, :], n[..., None, :]
+
+
+def _mesh_fn(t1: int, hull: _Hull):
+  """The narrowphase of geom type ``t1`` against ``hull`` (geom2)."""
+  T = GeomType
+  tris, eqs = hull.tris, hull.eqs
+  if t1 == T.PLANE:
+    return lambda p1, m1, s1, p2, m2, s2: _plane_hull(p1, m1, p2, m2,
+                                                      hull.verts)
+  if t1 == T.SPHERE:
+    return _one(lambda p1, m1, s1, p2, m2, s2: _sphere_hull(
+        p1, s1[..., 0], p2, m2, tris, eqs))
+  if t1 == T.CAPSULE:
+    return _one(lambda p1, m1, s1, p2, m2, s2: _capsule_hull(
+        p1, m1, s1[..., 0], s1[..., 1], p2, m2, tris, eqs))
+  if t1 == T.ELLIPSOID:
+    return _one(lambda p1, m1, s1, p2, m2, s2: _ellipsoid_hull(
+        p1, m1, s1, p2, m2, tris, eqs))
+  raise NotImplementedError(f"mesh collision vs type {t1}")
+
+
 def _narrow_fn(t1: int, t2: int):
   """Uniform signature (p1, m1, s1, p2, m2, s2) -> (dist [..., P],
   pos [..., P, 3], n [..., P, 3]), the reference's dispatch table."""
@@ -1023,8 +1224,11 @@ def _narrow_fn(t1: int, t2: int):
 
 
 def group_fn(g: _Group, d: Data):
-  """The narrowphase of a type group: ``_narrow_fn``'s, or a field's with
-  its heights (the model's, or ``d.overlay["hfield_data"]`` per env)."""
+  """The narrowphase of a type group: ``_narrow_fn``'s, a hull's, or a
+  field's with its heights (the model's, or ``d.overlay["hfield_data"]``
+  per env)."""
+  if g.hull is not None:
+    return _mesh_fn(g.types[0], g.hull)
   if g.hfield is None:
     return _narrow_fn(*g.types)
   f = g.hfield

@@ -285,7 +285,8 @@ def _check_supported(m: Model) -> None:
   here, when the model is loaded: limits on ball joints and equalities of
   another type (connect, weld; its ``engine/constraint.py``), and joint
   transmission and springs on ball and free joints (its
-  ``engine/forward.py``).
+  ``engine/forward.py``). A colliding mesh whose convex hull has no
+  triangles is refused too: the reference's mesh pairs cannot collide it.
   """
   jt = np.asarray(m.jnt_type)
   quat_joint = (jt == JointType.BALL) | (jt == JointType.FREE)
@@ -299,6 +300,14 @@ def _check_supported(m: Model) -> None:
   for e in range(m.neq):
     if int(m.eq_type[e]) not in (EqType.JOINT, EqType.TENDON):
       raise NotImplementedError(f"equality type {int(m.eq_type[e])}")
+  for mid, tris in getattr(m, "mesh_hull_tris", {}).items():
+    if len(tris) == 0:
+      geoms = [g for g in range(m.ngeom) if int(m.geom_dataid[g]) == mid
+               and int(m.geom_type[g]) == GeomType.MESH]
+      raise ValueError(
+          f"mesh {mid} (geoms {geoms}) collides, but its convex hull has "
+          f"no triangles (a flat or degenerate mesh): the mesh pairs "
+          f"cannot collide it")
   if int(m.opt.integrator) != IntegratorType.EULER:
     raise NotImplementedError(f"integrator {int(m.opt.integrator)}")
   if int(m.opt.cone) != ConeType.PYRAMIDAL:

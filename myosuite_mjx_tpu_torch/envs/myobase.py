@@ -29,6 +29,11 @@ below run the same task classes on the synthetic hands of
   the Random key's start range and goal) on the hand-object scenes of
   ``assets/fixtures.py`` (``<hand>_key.npz``, ``_hold``, ``_pen``), in
   place of MyoSuite's myohand_keyturn/hold/pen.xml.
+- ``<hand>Reorient8-v0``, ``Reorient100-v0``, ``ReorientID-v0`` and
+  ``ReorientOOD-v0``: the SAR reorientation family (max_episode_steps 50,
+  frame_skip 5) on the SAR hand (``<hand>_sar.npz``, condim 4, for 8 and
+  100; ``<hand>_sar_c3.npz``, condim 3, for ID and OOD), in place of
+  MyoSuite's myohand_sar.xml.
 - Variants: ``<hand>Sarc...`` (sarcopenia) and ``<hand>Fati...`` (fatigue)
   of every base id, by the reference's rule (``register_env_variant`` with
   ``muscle_condition``), e.g. ``hand23SarcPoseFixed-v0``. There are no
@@ -54,6 +59,10 @@ from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
 from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
 from myosuite_mjx_tpu_torch.envs.registry import (asset, register,
                                                   register_env_variant)
+from myosuite_mjx_tpu_torch.envs.reorient_sar import (Geometries8Env,
+                                                      Geometries100Env,
+                                                      InDistributionEnv,
+                                                      OutOfDistributionEnv)
 from myosuite_mjx_tpu_torch.envs.walk import (LegReachEnv, TerrainWalkEnv,
                                               WalkEnv)
 
@@ -107,6 +116,14 @@ for _hand, (_npz, _tips) in HANDS.items():
              kwargs=dict(model_path=asset(f"{_hand}_{_obj}.npz"),
                          normalize_act=True, **_kw))
     BASE_IDS.append(f"{_hand}{_task}-v0")
+  for _task, _cls, _scene in (("8", Geometries8Env, "sar"),
+                              ("100", Geometries100Env, "sar"),
+                              ("ID", InDistributionEnv, "sar_c3"),
+                              ("OOD", OutOfDistributionEnv, "sar_c3")):
+    register(f"{_hand}Reorient{_task}-v0", _cls, max_episode_steps=50,
+             kwargs=dict(model_path=asset(f"{_hand}_{_scene}.npz"),
+                         normalize_act=True, frame_skip=5))
+    BASE_IDS.append(f"{_hand}Reorient{_task}-v0")
 
 # muscle-condition variants (the reference's rule)
 for _id in BASE_IDS:

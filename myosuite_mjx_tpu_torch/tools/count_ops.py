@@ -18,6 +18,7 @@ launch, so the count predicts the host's dispatch cost without a card;
 from __future__ import annotations
 
 import argparse
+import re
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -63,7 +64,7 @@ def main(argv=None) -> None:
   args = ap.parse_args(argv)
   for name in args.scenes:
     env = None
-    if name.endswith("-v0"):
+    if re.search(r"-v\d+$", name):
       env = envs.make(name)
       dm = env.device_model(args.device)
       st = env.reset(args.batch, args.device,

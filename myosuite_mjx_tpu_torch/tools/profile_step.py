@@ -8,7 +8,9 @@ hand23 pose task with myoHandPoseFixed-v0's kwargs) and prints:
 
 - per engine stage, the host wall time of one call at the batch size,
   between two ``torch.cuda.synchronize()`` (so launch overhead counts),
-  and the number of kernels the stage launches (profiler count);
+  and the number of kernels the stage launches (profiler count); the
+  contacts stage also per narrowphase type group (named by its geom
+  types, e.g. ``CAPSULE-MESH``);
 - over a profiled window of control steps, wall time, summed device
   kernel time and the device's idle share (1 - kernel time / wall);
 - the kernels with the most device time.
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from myosuite_mjx_tpu_torch import envs
 from myosuite_mjx_tpu_torch.engine import collision, constraint, forward
 from myosuite_mjx_tpu_torch.engine import solver
+from myosuite_mjx_tpu_torch.engine.model import GeomType
 from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
 
 
@@ -89,6 +92,14 @@ def main(argv=None) -> None:
   _stage("fwd_acceleration", lambda: forward.fwd_acceleration(m, d_act,
                                                               False))
   _stage("contacts", lambda: collision.contacts(m, d_acc))
+  spec = collision.collision_spec(m)
+  for grp in spec.groups if spec is not None else ():
+    s1 = grp.size1.expand(args.batch, -1, -1)
+    s2 = grp.size2.expand(args.batch, -1, -1)
+    _stage("  " + "-".join(GeomType(t).name for t in grp.types),
+           lambda grp=grp, s1=s1, s2=s2: collision.group_fn(grp, d_acc)(
+               d_acc.geom_xpos[:, grp.g1], d_acc.geom_xmat[:, grp.g1], s1,
+               d_acc.geom_xpos[:, grp.g2], d_acc.geom_xmat[:, grp.g2], s2))
   _stage("make_efc", lambda: constraint.make_efc(m, d_acc, blocks))
   _stage("newton_solve", lambda: solver._newton_solve(
       m, d_acc, efc[0], efc[1], efc[2], efc[3], *iters))

@@ -180,12 +180,14 @@ def test_pair_matches_jax(pair):
 
 
 def test_every_supported_pair_but_hfield_and_mesh_is_ported():
-  # the heightfield pairs are ported too (tests/test_torch_hfield.py):
-  # every supported pair but the mesh ones
-  want = {p for p in jc._SUPPORTED if T.MESH not in p}
-  assert tc.PORTED == want and len(want) == 22
-  assert tc.PRIMITIVE == {p for p in want if T.HFIELD not in p}
+  # the heightfield pairs (tests/test_torch_hfield.py) and the mesh pairs
+  # (tests/test_torch_mesh_hulls.py) are ported too: every supported pair
+  want = set(jc._SUPPORTED)
+  assert tc.PORTED == want and len(want) == 26
+  assert tc.PRIMITIVE == {p for p in want
+                          if T.HFIELD not in p and T.MESH not in p}
   assert len(tc.PRIMITIVE) == 20
+  assert tc.MESH == {p for p in want if T.MESH in p} and len(tc.MESH) == 4
   # the slot counts of the reference
   assert sorted(tc._SUPPORTED) == sorted(jc._SUPPORTED)
 

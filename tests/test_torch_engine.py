@@ -27,6 +27,7 @@ from myosuite_mjx_tpu.engine import tendon as jtendon
 from myosuite_mjx_tpu.ops import quat as jquat
 from myosuite_mjx_tpu_torch.engine import collision, constraint, forward
 from myosuite_mjx_tpu_torch.engine import muscle, smooth, solver, tendon
+from myosuite_mjx_tpu_torch.engine.model import GeomType as T
 from myosuite_mjx_tpu_torch.ops import quat
 
 B = 8
@@ -292,9 +293,11 @@ def test_step_full_data_false_keeps_carry_exact():
 
 
 def test_unported_pair_type_raises():
-  """Mesh pairs have no narrowphase in the port: building the layout
-  names the pair and the roadmap item that ports it. (Heightfield pairs
-  are ported: ``tests/test_torch_hfield.py``.)"""
+  """Every pair type the reference supports is ported now, mesh pairs
+  included (``tests/test_torch_mesh_hulls.py``): these scenes, which
+  raised before the mesh pairs were ported, build their layout with one
+  mesh group each. What is refused is a colliding mesh whose hull has no
+  triangles: the model is refused when it loads, naming the mesh."""
   from myosuite_mjx_tpu.engine.model import load_model
   from myosuite_mjx_tpu_torch.engine.model import DeviceModel, from_reference
   body = """<body pos="0 0 .1"><joint type="slide" axis="0 0 1"/>{}</body>"""
@@ -308,6 +311,13 @@ def test_unported_pair_type_raises():
   for pair, (asset, ground, geom) in scenes.items():
     xml = (f"<mujoco>{asset}<worldbody>{ground}{body.format(geom)}"
            "</worldbody></mujoco>")
-    dm = DeviceModel(from_reference(load_model(xml)), torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match=f"{pair}.*Queue 1 item 4e"):
-      collision.collision_spec(dm)
+    ref = load_model(xml)
+    dm = DeviceModel(from_reference(ref), torch.float64, "cpu")
+    spec = collision.collision_spec(dm)
+    names = [f"{T(g.types[0]).name}-{T(g.types[1]).name}"
+             for g in spec.groups]
+    assert names == [pair] and spec.groups[0].hull is not None
+    m = from_reference(ref)
+    m.mesh_hull_tris = {0: np.zeros((0, 3, 3))}
+    with pytest.raises(ValueError, match="mesh 0.*no triangles"):
+      DeviceModel(m, torch.float64, "cpu")

@@ -168,7 +168,9 @@ def test_cell_boundary_and_edge_lanes():
 
 def test_hfield_pairs_are_ported():
   assert {(T.HFIELD, T.SPHERE), (T.HFIELD, T.CAPSULE)} <= tc.PORTED
-  assert not any(T.MESH in p for p in tc.PORTED)
+  # the mesh pairs are ported too (tests/test_torch_mesh_hulls.py)
+  assert {p for p in tc.PORTED if T.MESH in p} == tc.MESH
+  assert len(tc.MESH) == 4
 
 
 OVERLAY_XML = """
@@ -209,5 +211,14 @@ def test_unported_mesh_pair_names_its_roadmap_item():
   dm = tmodel.DeviceModel(
       tmodel.from_reference(jmodel.load_model(xml, dtype=np.float64)),
       torch.float64, "cpu")
-  with pytest.raises(NotImplementedError, match="PLANE-MESH.*ROADMAP.md"):
-    tc.collision_spec(dm)
+  # the mesh pairs are ported: the scene builds one plane-mesh group on
+  # the tetrahedron's hull (4 triangles), with the reference's 4 slots
+  spec = tc.collision_spec(dm)
+  (g,) = spec.groups
+  assert tuple(g.types) == (T.PLANE, T.MESH) and spec.nslot == 4
+  assert g.hull.tris.shape == (4, 3, 3) and g.hull.verts.shape == (4, 3)
+  # what is refused is a hull without triangles, naming the mesh
+  m = tmodel.from_reference(jmodel.load_model(xml, dtype=np.float64))
+  m.mesh_hull_tris = {0: np.zeros((0, 3, 3))}
+  with pytest.raises(ValueError, match="mesh 0 .*no triangles"):
+    tmodel.DeviceModel(m, torch.float64, "cpu")

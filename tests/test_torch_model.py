@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (FIXTURE_NPZ, HAND_TARGET, LEGS, NPZ, OBJECTS,
-                          export_model, fixture_xml, jax_model)
+from torch_parity import (FIXTURE_NPZ, HAND_TARGET, LEGS, NPZ, OBJECTS, SAR,
+                          TASK_SCENES, export_model, fixture_xml, jax_model)
 from myosuite_mjx_tpu.engine import model as jmodel
 from myosuite_mjx_tpu_torch.engine import api, collision
 from myosuite_mjx_tpu_torch.engine import data as tdata
@@ -47,7 +47,8 @@ def _assert_models_equal(a: tmodel.Model, b: tmodel.Model):
 
 
 @pytest.mark.parametrize("digits", [2, 5, "free", "prims", *(
-    f"{obj}{d}" for obj in OBJECTS for d in (2, 5)), *LEGS, "plate"])
+    f"{obj}{d}" for obj in OBJECTS for d in (2, 5)), *LEGS, "plate",
+    "hulls", *(f"{s}{d}" for s in TASK_SCENES for d in (2, 5)), *SAR])
 def test_checked_in_npz_equals_fresh_export(digits):
   fresh = export_model(fixture_xml(digits))
   with np.load(FIXTURE_NPZ[digits]) as z:
@@ -194,3 +195,48 @@ def test_legs_fixture_has_myoleg_names_and_width(name):
   # the equality rows and the hfield pairs build
   dm = tmodel.DeviceModel(m, torch.float64, "cpu")
   assert collision.collision_spec(dm) is not None
+
+
+# scene -> (nv, nu, na) at the card's width and at the CPU tests' width
+TASK_WIDTHS = {"baoding": ((35, 39, 39), (23, 21, 21)),
+               "sar": ((29, 39, 39), (17, 21, 21)),
+               "sar_c3": ((29, 39, 39), (17, 21, 21)),
+               "relocate": ((33, 63, 63), (21, 45, 45)),
+               "bimanual": ((50, 80, 63), (32, 56, 45))}
+
+
+@pytest.mark.parametrize("scene", sorted(TASK_WIDTHS))
+@pytest.mark.parametrize("digits", [5, 2])
+def test_task_scenes_have_their_widths(scene, digits):
+  """The hand and arm task scenes: nv, nu and na (the arm adds 24
+  muscles over the shoulder and elbow to the hand's, MyoArm's 63 at five
+  digits), nv within the SPD kernel's 64, and the collision layout
+  builds (the relocate object's mesh pairs among it)."""
+  key = (f"{scene}{digits}" if scene != "sar_c3" else f"sar{digits}_c3")
+  m = tmodel.load_npz(FIXTURE_NPZ[key])
+  assert (m.nv, m.nu, m.na) == TASK_WIDTHS[scene][digits == 2]
+  assert m.nv <= 64
+  spec = collision.collision_spec(tmodel.DeviceModel(m, torch.float64, "cpu"))
+  meshes = [g for g in spec.groups if g.hull is not None]
+  assert bool(meshes) == (scene == "relocate")
+  if scene in ("relocate", "bimanual"):
+    for j in ("elv_angle", "shoulder_elv", "shoulder_rot", "elbow_flexion"):
+      m.name2id("joint", j)
+
+
+@pytest.mark.parametrize("digits", [5, 2])
+def test_arm_fixture_has_myoarm_width(digits):
+  """arm27 (arm15 at two digits): the hand under three shoulder hinges
+  and an elbow, 24 muscles over the shoulder and elbow before the hand's
+  (MyoArm's 63 at five digits), the arm's joints first in qpos."""
+  from myosuite_mjx_tpu_torch.assets.fixtures import arm_fixture_xml
+  m = tmodel.from_reference(jmodel.load_model(arm_fixture_xml(digits),
+                                              dtype=np.float64))
+  nhand = 3 + 4 * digits
+  assert (m.nv, m.nu, m.na) == (4 + nhand, 24 + (39 if digits == 5 else 21),
+                                24 + (39 if digits == 5 else 21))
+  joints = sorted(m.names["joint"], key=m.names["joint"].get)
+  assert joints[:5] == ["elv_angle", "shoulder_elv", "shoulder_rot",
+                        "elbow_flexion", "pro_sup"]
+  actuators = sorted(m.names["actuator"], key=m.names["actuator"].get)
+  assert actuators[0] == "DELT1" and actuators[24] == "FCR"

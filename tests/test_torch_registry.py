@@ -22,7 +22,12 @@ from myosuite_mjx_tpu_torch.envs.pen import PenTwirlFixedEnv, PenTwirlRandomEnv
 from myosuite_mjx_tpu_torch.envs.pose import PoseEnv
 from myosuite_mjx_tpu_torch.envs.reach import ReachEnv
 from myosuite_mjx_tpu_torch.envs.reorient import ReorientEnv
+from myosuite_mjx_tpu_torch.envs.baoding import BaodingEnv
+from myosuite_mjx_tpu_torch.envs.bimanual import BimanualEnv
 from myosuite_mjx_tpu_torch.envs.chasetag import ChaseTagEnv
+from myosuite_mjx_tpu_torch.envs.relocate import RelocateEnv
+from myosuite_mjx_tpu_torch.envs.reorient_sar import (
+    Geometries8Env, Geometries100Env, InDistributionEnv, OutOfDistributionEnv)
 from myosuite_mjx_tpu_torch.envs.walk import (LegReachEnv, TerrainWalkEnv,
                                               WalkEnv)
 
@@ -128,6 +133,21 @@ TASKS = {
     "DieReorientDemo": (ReorientEnv, 150, 5, 29),
     "DieReorientP1": (ReorientEnv, 150, 5, 29),
     "DieReorientP2": (ReorientEnv, 150, 5, 29),
+    "BaodingP1": (BaodingEnv, 200, 10, 35),
+    "BaodingP2": (BaodingEnv, 200, 10, 35),
+    "Reorient8": (Geometries8Env, 50, 5, 29),
+    "Reorient100": (Geometries100Env, 50, 5, 29),
+    "ReorientID": (InDistributionEnv, 50, 5, 29),
+    "ReorientOOD": (OutOfDistributionEnv, 50, 5, 29),
+}
+# the MyoChallenge hand tasks: no condition variants
+CHALLENGE = ("Die", "Baoding")
+# the arm tasks -> (class, horizon, frame_skip, arm27's nv); on arm27 and
+# arm15
+ARM_TASKS = {
+    "RelocateP1": (RelocateEnv, 150, 5, 33),
+    "RelocateP2": (RelocateEnv, 150, 5, 33),
+    "Bimanual": (BimanualEnv, 1000, 5, 50),
 }
 
 
@@ -141,23 +161,28 @@ LEG_TASKS = {
     "ChaseTagP1": (ChaseTagEnv, 2000, 10, 22),
     "ChaseTagP2": (ChaseTagEnv, 2000, 10, 22),
 }
-ALL_TASKS = {**TASKS, **LEG_TASKS}
+ALL_TASKS = {**TASKS, **LEG_TASKS, **ARM_TASKS}
 
 
 def _task(env_id: str) -> str:
-  """The task of an id: hand23SarcObjHoldFixed-v0 -> ObjHoldFixed."""
-  task = env_id[6:-3]
+  """The task of an id: hand23SarcObjHoldFixed-v0 -> ObjHoldFixed,
+  arm27RelocateP1-v0 -> RelocateP1."""
+  task = env_id[5 if env_id.startswith("arm") else 6:-3]
   return task[4:] if task.startswith(("Sarc", "Fati")) else task
 
 
 def test_the_registered_ids():
   ids = envs.registry_ids()
   bases = [f"{h}{t}-v0" for h in ("hand11", "hand23") for t in TASKS
-           if not t.startswith("Die")]
+           if not t.startswith(CHALLENGE)]
   want = {f"{b[:6]}{c}{b[6:]}" for b in bases for c in ("", "Sarc", "Fati")}
-  # the die reorientation ids take no condition variants (MyoChallenge)
-  want |= {f"{h}{t}-v0" for h in ("hand11", "hand23") for t in TASKS
-           if t.startswith("Die")}
+  # the die reorientation and baoding ids take no condition variants
+  # (MyoChallenge); baoding is v1, as the reference's
+  want |= {f"{h}{t}-v{1 if t.startswith('Baoding') else 0}"
+           for h in ("hand11", "hand23") for t in TASKS
+           if t.startswith(CHALLENGE)}
+  # the arm ids (MyoChallenge), no variants
+  want |= {f"{a}{t}-v0" for a in ("arm15", "arm27") for t in ARM_TASKS}
   # the leg ids: Sarc and Fati variants of the stand and walk tasks, as the
   # reference registers them; chase-tag (MyoChallenge) without
   legs = [f"{g}{t}-v0" for g in ("legs16", "legs80") for t in LEG_TASKS
@@ -165,7 +190,7 @@ def test_the_registered_ids():
   want |= {f"{b[:6]}{c}{b[6:]}" for b in legs for c in ("", "Sarc", "Fati")}
   want |= {f"{g}{t}-v0" for g in ("legs16", "legs80") for t in LEG_TASKS
            if t.startswith("Chase")}
-  assert set(ids) == want and len(ids) == 18 + 36 + 6 + 30 + 4
+  assert set(ids) == want and len(ids) == 18 + 36 + 6 + 30 + 4 + 24 + 4 + 6
   assert not [i for i in ids if "Reaf" in i]
   assert registry.asset("hand23.npz").endswith(
       "myosuite_mjx_tpu_torch/assets/hand23.npz")
@@ -217,6 +242,7 @@ def test_reach_targets_and_thresholds():
 def test_every_id_constructs_and_hand11_ids_step(env_id):
   env = envs.make(env_id, cache=False, dtype=torch.float64)
   assert env.horizon == TASKS[_task(env_id)][1]
+  assert env.frame_skip == TASKS[_task(env_id)][2]
   if env_id.startswith("hand23"):
     assert env.model.nv == TASKS[_task(env_id)][3]
     return
@@ -272,3 +298,51 @@ def test_every_leg_id_constructs_and_legs16_ids_step(env_id):
   assert st.obs.shape[0] == 2 and bool(torch.isfinite(st.obs).all())
   if "Fati" in env_id:
     assert "fatigue" in st.aux
+
+
+def test_the_new_hand_and_arm_ids_take_the_references_kwargs():
+  _, p1 = registry._REGISTRY["hand23BaodingP1-v1"]
+  _, p2 = registry._REGISTRY["hand23BaodingP2-v1"]
+  assert p1["goal_time_period"] == (5, 5) and "task_choice" not in p1
+  assert (p2["goal_time_period"], p2["goal_xrange"], p2["goal_yrange"]) == (
+      (4, 6), (0.020, 0.030), (0.022, 0.032))
+  assert (p2["obj_size_range"], p2["obj_mass_range"]) == ((0.018, 0.024),
+                                                          (0.030, 0.300))
+  assert p2["obj_friction_change"] == (0.2, 0.001, 0.00002)
+  assert p2["task_choice"] == "random"
+  assert p1["model_path"].endswith("hand23_baoding.npz")
+  _, r1 = registry._REGISTRY["arm15RelocateP1-v0"]
+  _, r2 = registry._REGISTRY["arm27RelocateP2-v0"]
+  assert (r1["pos_th"], r1["rot_th"]) == (0.1, np.inf)
+  assert r1["target_xyz_range"] == {"high": [0.2, -0.1, 0.9],
+                                    "low": [0.0, -0.35, 0.9]}
+  assert r2["qpos_noise_range"] == 0.01
+  assert r2["obj_xyz_range"] == {"high": [0.1, -0.15, 1.0],
+                                 "low": [-0.1, -0.35, 1.0]}
+  assert r2["model_path"].endswith("arm27_relocate.npz")
+  _, bm = registry._REGISTRY["arm27Bimanual-v0"]
+  assert bm["obj_mass_change"] == (-0.050, 0.050)
+  assert bm["obj_friction_change"] == (0.1, 0.001, 0.00002)
+  for name, scene in (("8", "sar"), ("100", "sar"), ("ID", "sar_c3"),
+                      ("OOD", "sar_c3")):
+    _, kw = registry._REGISTRY[f"hand11Reorient{name}-v0"]
+    assert kw["model_path"].endswith(f"hand11_{scene}.npz")
+    assert kw["frame_skip"] == 5 and kw["horizon"] == 50
+
+
+@pytest.mark.parametrize("env_id", [i for i in sorted(
+    registry._REGISTRY) if i.startswith(("arm15", "arm27"))])
+def test_every_arm_id_constructs_and_arm15_ids_step(env_id):
+  env = envs.make(env_id, cache=False, dtype=torch.float64)
+  cls, horizon, frame_skip, nv27 = ARM_TASKS[_task(env_id)]
+  assert type(env) is cls and env.horizon == horizon
+  assert env.frame_skip == frame_skip
+  if env_id.startswith("arm27"):
+    assert env.model.nv == nv27
+    return
+  g = torch.Generator().manual_seed(0)
+  st = env.reset(2, "cpu", g)
+  for _ in range(2):
+    st = env.autoreset_step(st, torch.full((2, env.action_dim), 0.5,
+                                           dtype=torch.float64), g)
+  assert st.obs.shape[0] == 2 and bool(torch.isfinite(st.obs).all())

@@ -60,27 +60,64 @@ OBJECT_NPZ = {(obj, digits): os.path.join(
 LEGS = {"legs80": (40, False), "legs80_chasetag": (40, True),
         "legs16": (8, False), "legs16_chasetag": (8, True)}
 LEGS_NPZ = {name: os.path.join(ASSETS, f"{name}.npz") for name in LEGS}
-# every checked-in fixture: the hands by digit count, "free", "prims", the
-# object scenes as "<object><digits>" (e.g. "key2"), the leg scenes and
-# "plate"
 # the sensor tests' plate scene
 PLATE_NPZ = os.path.join(ASSETS, "plate.npz")
+# the mesh-hull scene
+HULLS_NPZ = os.path.join(ASSETS, "hulls.npz")
+# the baoding hands and the arm scenes by digit count: hand11_baoding.npz,
+# arm27_relocate.npz, ...
+TASK_SCENES = ("baoding", "relocate", "bimanual")
+SCENE_NPZ = {(scene, digits): os.path.join(ASSETS, "{}{}_{}.npz".format(
+    "hand" if scene == "baoding" else "arm",
+    {2: 11, 5: 23}[digits] + (0 if scene == "baoding" else 4), scene))
+             for scene in TASK_SCENES for digits in (2, 5)}
+# the SAR hands by key: digits, condim (4 for Geometries8/100, 3 for the
+# in- and out-of-distribution tasks)
+SAR = {"sar2": (2, 4), "sar5": (5, 4), "sar2_c3": (2, 3), "sar5_c3": (5, 3)}
+SAR_NPZ = {key: os.path.join(ASSETS, "hand{}_sar{}.npz".format(
+    {2: 11, 5: 23}[d], "" if c == 4 else "_c3")) for key, (d, c) in SAR.items()}
+# every checked-in fixture: the hands by digit count, "free", "prims", the
+# object scenes as "<object><digits>" (e.g. "key2"), the leg scenes,
+# "plate", "hulls", the task scenes as "<scene><digits>" (e.g.
+# "relocate5") and the SAR hands
 FIXTURE_NPZ = {**NPZ, "free": FREE_NPZ, "prims": PRIMS_NPZ,
                **{f"{obj}{digits}": path
                   for (obj, digits), path in OBJECT_NPZ.items()},
-               **LEGS_NPZ, "plate": PLATE_NPZ}
+               **LEGS_NPZ, "plate": PLATE_NPZ, "hulls": HULLS_NPZ,
+               **{f"{scene}{digits}": path
+                  for (scene, digits), path in SCENE_NPZ.items()},
+               **SAR_NPZ}
+
+
+# the SAR tasks' geometry tables, exported from the JAX package's
+# ``envs/sar_geometries.py`` (numpy only)
+SAR_GEOMETRIES_NPZ = os.path.join(ASSETS, "sar_geometries.npz")
+
+
+def sar_geometry_tables() -> dict[str, np.ndarray]:
+  """The JAX package's SAR size tables as ``<table>_<TYPE>`` arrays
+  (``G8_CAPS`` ... ``OOD_BOX``), the keys of ``sar_geometries.npz``."""
+  with bare_envs_package():
+    from myosuite_mjx_tpu.envs import sar_geometries as geo
+    return {f"{table}_{kind.upper()}": np.asarray(arr)
+            for table in ("G8", "G100", "ID", "OOD")
+            for kind, arr in zip(geo.TYPE_NAMES, getattr(geo, table))}
 
 
 def fixture_xml(key) -> str:
   """The MJCF text of a ``FIXTURE_NPZ`` key."""
   if key in LEGS:
     return fixtures.legs_fixture_xml(*LEGS[key])
+  if key in SAR:
+    return fixtures.sar_fixture_xml(*SAR[key])
   if key == "free":
     return free_fixture_xml()
   if key == "prims":
     return fixtures.prims_fixture_xml()
   if key == "plate":
     return fixtures.plate_fixture_xml()
+  if key == "hulls":
+    return fixtures.hulls_fixture_xml()
   if isinstance(key, str):
     return getattr(fixtures, f"{key[:-1]}_fixture_xml")(int(key[-1]))
   return hand_fixture_xml(key)
@@ -318,8 +355,10 @@ def main(argv=None) -> None:
   ap = argparse.ArgumentParser(description="Write the port's fixture models.")
   ap.add_argument("--export", action="store_true",
                   help="compile every fixture (hand11, hand23, free10, "
-                       "prims36, the hand-object scenes, the leg scenes "
-                       "and the plate) and write its .npz file")
+                       "prims36, the hand-object scenes, the leg scenes, "
+                       "the plate, hulls, the baoding, SAR, relocate and "
+                       "bimanual scenes) and write its .npz file, and "
+                       "the SAR geometry tables")
   ap.add_argument("--out-dir", default=os.path.normpath(ASSETS))
   args = ap.parse_args(argv)
   if not args.export:
@@ -328,6 +367,9 @@ def main(argv=None) -> None:
     path = os.path.join(args.out_dir, os.path.basename(fixture))
     np.savez_compressed(path, **export_model(fixture_xml(key)))
     print(path)
+  path = os.path.join(args.out_dir, os.path.basename(SAR_GEOMETRIES_NPZ))
+  np.savez_compressed(path, **sar_geometry_tables())
+  print(path)
 
 
 if __name__ == "__main__":

@@ -105,7 +105,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the bodies rest and none is below the plane; (c) ``hand23KeyTurnRandom``,
    ``ObjHoldRandom``, ``PenTwirlRandom`` and ``DieReorientP1`` through
    ``envs.make``: 16 envs for 5 control steps against the CPU with the same
-   draws (phase 9's bounds), then B = 4096 for 14 control steps with every
+   draws (phase 9's bounds), then B = 4096 for 10 control steps with every
    episode clock crossing its horizon, printing physics-steps/s, SPD
    launches, active contacts, the share of envs whose object touches the
    hand and the contacts the top-k cull dropped, failing on a non-finite
@@ -124,7 +124,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the ball's weight within 1%; (c) ``legs80StandRandom``, ``Walk``,
    ``RoughTerrainWalk``, ``StairTerrainWalk`` and ``ChaseTagP2`` through
    ``envs.make``: 16 envs for 5 control steps against the CPU with the
-   same draws; (d) each at B = 4096 for 14 control steps with every
+   same draws; (d) each at B = 4096 for 8 control steps with every
    episode clock crossing its horizon, printing physics-steps/s, the
    ratio to phase 4, ms per control step, SPD launches, active contacts,
    the share of envs with a foot on the ground, the contacts the top-k
@@ -144,7 +144,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    rest; (c) ``hand23BaodingP2-v1``, ``arm27RelocateP2-v0``,
    ``arm27Bimanual-v0`` and ``hand23Reorient100-v0`` through ``envs.make``:
    16 envs for 5 control steps against the CPU (14c's rule); (d) each at
-   B = 4096 for 20 control steps with every episode clock crossing its
+   B = 4096 for 10 control steps with every episode clock crossing its
    horizon, printing physics-steps/s, the ratio to phase 4, ms per control
    step, SPD launches, active contacts and the contacts the cull dropped,
    failing on a non-finite output, a baoding ball that starts below
@@ -154,8 +154,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    not autoreset; (e) ``tools/profile_step.py`` on ``arm27RelocateP2-v0``,
    once (its stages name each narrowphase group, the mesh ones too).
 
-Every [B, n] at which phases 4-15 launch the kernel must be among those
-phase 3 checked. Phases 13-15's CPU runs at B = 16 are computed in one
+16. the OSL RunTrack and MyoDM tracking tasks: (a) the OSL machine
+   (``envs/osl.py``) on the card in float32 against the port in float64
+   on the CPU, 4,096 seeded sensor vectors and states: every state equal,
+   torques within ``OSL_TORQUE_BOUND``; (b) ``osl54OslRunFixed-v0``,
+   ``osl54OslRunRandom-v0`` and ``track29CubesmallFixed``, ``Random`` and
+   ``Lift-v0`` through ``envs.make``: 16 envs for 5 control steps against
+   the CPU (14c's rule); (c) both OSL ids and the Random and Lift tracking
+   ids at B = 4096 for 8 control steps with every episode clock crossing
+   its horizon, printing physics-steps/s, the ratio to phase 4, ms per
+   control step, SPD launches per control step, active contacts per env
+   and step, the contacts the cull dropped, the OSL states over the
+   env-steps and the envs whose machine left early stance, and the
+   tracking tasks' lift-bonus count, failing on a non-finite output, an
+   OSL machine that never leaves early stance, or an env that did not
+   autoreset.
+
+Every [B, n] at which phases 4-16 launch the kernel must be among those
+phase 3 checked. Phases 13-16's CPU runs at B = 16 are computed in one
 worker process (``cpu_references``), started after phase 2 and joined at
 phase 13, while the card runs phases 3-12.
 
@@ -190,10 +206,11 @@ HAND23 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "hand23.npz")
 FREE10 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "free10.npz")
 # the kernel is built for these padded sizes: cover each and its ends, and
 # n = 1; 10 is free10's nv (phase 12), 24 and 29 the hand-object scenes'
-# and 36 prims36's (phase 13), 22 the legs' and 7 the plate's (phase 14)
+# and 36 prims36's (phase 13), 22 the legs' and 7 the plate's (phase 14),
+# 25 the OSL scene's and 35 the tracking scene's (phase 16)
 PADDED_SIZES = (8, 16, 24, 32, 64)
-SIZES = (1, 4, 7, 8, 10, 11, 16, 17, 22, 23, 24, 29, 32, 33, 35, 36, 50,
-         64)
+SIZES = (1, 4, 7, 8, 10, 11, 16, 17, 22, 23, 24, 25, 29, 32, 33, 35, 36,
+         50, 64)
 # the batches the paths launch the kernel at: the card side of phases 5 and
 # 7, the NPG eval, the PPO rollout, the NPG rollout and the main path
 PATH_BATCHES = (16, 32, 128, 512, B_MAIN)
@@ -334,8 +351,8 @@ MANIP_OBJECT = {"hand23KeyTurnRandom-v0": "key",
                 "hand23ObjHoldRandom-v0": "object",
                 "hand23PenTwirlRandom-v0": "Object",
                 "hand23DieReorientP1-v0": "die"}
-# (20 until PR 9; 14 keeps the whole command under 1,000 s with phase 15)
-MANIP_STEPS = 14
+# (10 keeps the whole command under 1,000 s with phases 14-16)
+MANIP_STEPS = 10
 # 13d: the CLI's SAC at the proof recipe's width on the hold task
 MANIP_TRAIN_ENV = "hand23ObjHoldRandom-v0"
 MANIP_SAC_ITERS = 6
@@ -371,8 +388,8 @@ PLATE_WEIGHT = (0.5 + 0.2) * 9.81
 LEG_TASKS = ("legs80StandRandom-v0", "legs80Walk-v0",
              "legs80RoughTerrainWalk-v0", "legs80StairTerrainWalk-v0",
              "legs80ChaseTagP2-v0")
-# (20 until PR 9; 14 keeps the whole command under 1,000 s with phase 15)
-LEG_STEPS = 14
+# (8 keeps the whole command under 1,000 s with phases 15 and 16)
+LEG_STEPS = 8
 LEG_FLIP_SLACK = 0.125
 LEG_SENSORS = ("r_foot", "r_toes", "l_foot", "l_toes")
 # 14e: tools/profile_step.py on this task, once
@@ -391,8 +408,27 @@ HULLS_WINDOW = 120
 HULLS_REST = 0.05
 HAND_ARM_TASKS = ("hand23BaodingP2-v1", "arm27RelocateP2-v0",
                   "arm27Bimanual-v0", "hand23Reorient100-v0")
-HAND_ARM_STEPS = 20
+# (10 keeps the whole command under 1,000 s with phase 16)
+HAND_ARM_STEPS = 10
 PROFILE_ARM_ENV = "arm27RelocateP2-v0"
+# phase 16: the OSL RunTrack and MyoDM tracking tasks. 16a holds the OSL
+# machine on the card (float32) against the port's float64 on the CPU on
+# OSL_SAMPLES seeded sensor vectors: the states equal, the torques within
+# OSL_TORQUE_BOUND (N m; float32 rounding of torques up to 168 N m); 16b
+# runs the tasks below 16 x 5 steps against the CPU (14c's rule); 16c
+# B_MAIN envs for OSL_TRACK_STEPS control steps with every episode clock
+# crossing its horizon inside the window.
+OSL_SAMPLES = 4096
+OSL_TORQUE_BOUND = 1e-3
+OSL_TRACK_TASKS = ("osl54OslRunFixed-v0", "osl54OslRunRandom-v0",
+                   "track29CubesmallFixed-v0", "track29CubesmallRandom-v0",
+                   "track29CubesmallLift-v0")
+# 16c's tasks: both OSL ids and two of the tracking ids (Fixed ends every
+# episode at its first step, as the reference's does: its object starts
+# 0.57 m from its target)
+OSL_TRACK_RATE_TASKS = ("osl54OslRunFixed-v0", "osl54OslRunRandom-v0",
+                        "track29CubesmallRandom-v0", "track29CubesmallLift-v0")
+OSL_TRACK_STEPS = 8
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1719,14 +1755,45 @@ def _task_b16(task_id: str, device, dtype) -> dict:
           for f in CARD_CPU_BOUND}
 
 
+def _hold_b16(task_id: str, refs: dict | None, label: str) -> None:
+  """16 envs x 5 control steps of a task on the card against the CPU with
+  the same draws; ``refs`` is ``cpu_references()`` (computed here without
+  it). The median env within the larger of phase 5's bound and
+  FLOAT32_MARGIN times the CPU float32 run's median env; no more envs
+  past it than in the CPU float32 run plus LEG_FLIP_SLACK."""
+  card = _task_b16(task_id, DEVICE, torch.float32)
+  if refs:
+    ref, cpu32 = refs[task_id, torch.float64], refs[task_id, torch.float32]
+  else:
+    ref = _task_b16(task_id, "cpu", torch.float64)
+    cpu32 = _task_b16(task_id, "cpu", torch.float32)
+  for f, bound in CARD_CPU_BOUND.items():
+    err = np.abs(card[f] - ref[f]).max(-1)
+    err32 = np.abs(cpu32[f] - ref[f]).max(-1)
+    median_bound = max(bound, FLOAT32_MARGIN * float(np.median(err32)))
+    median = float(np.median(err))
+    flips, flips32 = (err > median_bound).mean(), (err32 > median_bound
+                                                   ).mean()
+    ok = (median <= median_bound and flips <= flips32 + LEG_FLIP_SLACK
+          and np.isfinite(card[f]).all())
+    _say(f"{label} {task_id} B=16: card float32 vs cpu float64 after 5 "
+         f"steps, {f}: median env {median:.3e} (bound "
+         f"{median_bound:.3g}; cpu float32 {float(np.median(err32)):.3e}"
+         f"); envs past it {flips:.4f} (cpu float32 {flips32:.4f}, slack "
+         f"{LEG_FLIP_SLACK:g}); worst env {float(err.max()):.3e} (cpu "
+         f"float32 {float(err32.max()):.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"{task_id}: card and CPU disagree on {f}")
+
+
 def cpu_references() -> dict:
-  """Phases 13-15's CPU side (13b's and 15b's float64 runs, 13c's, 14c's
-  and 15c's float64 and float32 runs). ``main`` computes it in a worker
+  """Phases 13-16's CPU side (13b's and 15b's float64 runs, 13c's, 14c's,
+  15c's and 16b's float64 and float32 runs). ``main`` computes it in a worker
   process while the card runs the earlier phases."""
   torch.set_num_threads(2)
   out = {"prims": _prims_b16("cpu", torch.float64),
          "hulls": _hulls_b16("cpu", torch.float64)}
-  for task_id in MANIP_TASKS + LEG_TASKS + HAND_ARM_TASKS:
+  for task_id in MANIP_TASKS + LEG_TASKS + HAND_ARM_TASKS + OSL_TRACK_TASKS:
     for dtype in (torch.float64, torch.float32):
       out[task_id, dtype] = _task_b16(task_id, "cpu", dtype)
   return out
@@ -1808,11 +1875,79 @@ def _task_env(task_id: str, dtype=torch.float32):
   return envs.make(task_id, cache=False, dtype=dtype)
 
 
+def _drive_b_main(env, steps: int, on_step=None, on_init=None):
+  """``env`` at B_MAIN envs on the card for ``steps`` random control steps,
+  every episode clock set to cross its horizon once inside the window, the
+  steps after WARMUP timed. ``on_init(st)`` sees the first state and
+  ``on_step(i, prev, st, ended)`` each step, for a task's own counts.
+  Returns the last state and the run: seconds, timed steps,
+  physics-steps/s, SPD launches, contacts the cull dropped and the envs
+  that restarted."""
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  st = benv.init()
+  if on_init is not None:
+    on_init(st)
+  g = torch.Generator(device=DEVICE).manual_seed(0)
+  st = st.replace(steps=env.horizon - torch.randint(
+      1, steps + 1, (B_MAIN,), generator=g, device=DEVICE,
+      dtype=torch.int32))
+  restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+  dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+  t0 = None
+  for i in range(steps):
+    if i == WARMUP:
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+    action = torch.rand((B_MAIN, env.action_dim), generator=g,
+                        device=DEVICE)
+    prev, st = st, benv.step(st, action)
+    ended = st.info["terminated"] | st.info["truncated"]
+    restarted |= ended
+    dropped += st.data.ncon_dropped.sum()
+    if on_step is not None:
+      on_step(i, prev, st, ended)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  timed = steps - WARMUP
+  return st, {"seconds": seconds, "timed": timed,
+              "rate": timed * B_MAIN * env.frame_skip / seconds,
+              "launches": cuda_linalg.spd_solve_cuda.launches,
+              "dropped": int(dropped), "restarted": int(restarted.sum())}
+
+
+def _b_main_checks(task_id: str, env, st, run: dict) -> None:
+  """Fail on a non-finite obs, reward or qpos after ``_drive_b_main``, an
+  env that did not autoreset at its horizon, or no SPD launch."""
+  for what, x in (("obs", st.obs), ("reward", st.reward),
+                  ("qpos", st.data.qpos)):
+    if not bool(torch.isfinite(x).all()):
+      raise AssertionError(f"{task_id}: non-finite {what} at B={B_MAIN}")
+  if (run["restarted"] < B_MAIN
+      or bool((st.steps >= env.horizon).any())):
+    raise AssertionError(f"{task_id}: an env did not autoreset at its "
+                         f"horizon")
+  if run["launches"] <= 0:
+    raise AssertionError(f"{task_id} never launched the SPD kernel")
+
+
+def _profile(task_id: str) -> dict:
+  """``tools/profile_step.py`` on ``task_id``, one profiled control step,
+  in process; the SPD launches it made."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.tools import profile_step
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  profile_step.main(["--env", task_id, "--steps", "1"])
+  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+
+
 def phase_manip(phase4_rate: float, refs: dict | None = None) -> dict:
   """13c: the hand-object tasks through ``envs.make``; ``refs`` is
   ``cpu_references()`` (computed here without it)."""
-  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
-  from myosuite_mjx_tpu_torch.ops import cuda_linalg
   total = 0
   for task_id in MANIP_TASKS:
     card = _task_b16(task_id, DEVICE, torch.float32)
@@ -1836,40 +1971,19 @@ def phase_manip(phase4_rate: float, refs: dict | None = None) -> dict:
 
     env = _task_env(task_id)
     obj, hand, body = _object_geoms(env, task_id)
-    benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
-    torch.cuda.synchronize()
-    cuda_linalg.spd_solve_cuda.launches = 0
-    st = benv.init()
-    g = torch.Generator(device=DEVICE).manual_seed(0)
-    # every clock crosses the horizon once inside the window
-    st = st.replace(steps=env.horizon - torch.randint(
-        1, MANIP_STEPS + 1, (B_MAIN,), generator=g, device=DEVICE,
-        dtype=torch.int32))
-    restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
     touched = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
     lowest = torch.full((), np.inf, device=DEVICE)
-    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    t0 = None
-    for i in range(MANIP_STEPS):
-      if i == WARMUP:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-      action = torch.rand((B_MAIN, env.action_dim), generator=g,
-                          device=DEVICE)
-      st = benv.step(st, action)
-      restarted |= st.info["terminated"] | st.info["truncated"]
+
+    def on_step(i, prev, st, ended):
+      nonlocal lowest
       c = st.data.contact
-      on = c.dist < 0
       g1, g2 = c.geom1.long(), c.geom2.long()
       pair = (obj[g1] & hand[g2]) | (hand[g1] & obj[g2])
-      touched |= (on & pair).any(-1)
+      touched.logical_or_(((c.dist < 0) & pair).any(-1))
       lowest = torch.minimum(lowest, st.data.xpos[:, body, 2].min())
-      dropped += st.data.ncon_dropped.sum()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    timed = MANIP_STEPS - WARMUP
-    rate = timed * B_MAIN * env.frame_skip / seconds
-    launches = cuda_linalg.spd_solve_cuda.launches
+
+    st, run = _drive_b_main(env, MANIP_STEPS, on_step)
+    seconds, timed, launches = run["seconds"], run["timed"], run["launches"]
     total += launches
     c = st.data.contact
     active = (c.dist < 0).sum(-1).float()
@@ -1879,30 +1993,22 @@ def phase_manip(phase4_rate: float, refs: dict | None = None) -> dict:
     lowest = float(lowest)
     _say(f"manip {task_id} B={B_MAIN} (nv {env.model.nv}, frame_skip "
          f"{env.frame_skip}, horizon {env.horizon}): {MANIP_STEPS} control "
-         f"steps, {timed} timed in {seconds:.3f} s: {rate:.1f} "
+         f"steps, {timed} timed in {seconds:.3f} s: {run['rate']:.1f} "
          f"physics-steps/s (phase 4 of this call {phase4_rate:.1f}), "
          f"{seconds / timed * 1e3:.1f} ms per control step; spd_solve "
          f"launches {launches}; active contacts per env at the end "
          f"{float(active.mean()):.3f}; envs whose object touches the hand: "
          f"{n_touch / B_MAIN:.4f} at the end, {float(touched.float().mean()):.4f}"
-         f" at some step; dropped {int(dropped)} in all "
-         f"({int(dropped) / (MANIP_STEPS * B_MAIN):.4f} per env and step), "
+         f" at some step; dropped {run['dropped']} in all "
+         f"({run['dropped'] / (MANIP_STEPS * B_MAIN):.4f} per env and step), "
          f"{int(st.data.ncon_dropped.max())} at most in an env at the end; "
          f"lowest object centre {lowest:.4f}; autoreset "
-         f"{int(restarted.sum())} of {B_MAIN} envs")
-    for what, x in (("obs", st.obs), ("reward", st.reward),
-                    ("qpos", st.data.qpos)):
-      if not bool(torch.isfinite(x).all()):
-        raise AssertionError(f"{task_id}: non-finite {what} at B={B_MAIN}")
+         f"{run['restarted']} of {B_MAIN} envs")
+    _b_main_checks(task_id, env, st, run)
     if not lowest > 0.0:
       raise AssertionError(f"{task_id}: the object fell through the plane")
     if not bool(touched.any()):
       raise AssertionError(f"{task_id}: no env's object touched the hand")
-    if not bool(restarted.all()) or bool((st.steps >= env.horizon).any()):
-      raise AssertionError(f"{task_id}: an env did not autoreset at its "
-                           f"horizon")
-    if launches <= 0:
-      raise AssertionError(f"{task_id} never launched the SPD kernel")
   return {"launches": total}
 
 
@@ -2124,33 +2230,9 @@ def phase_leg_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
   """14c-d: the leg tasks through ``envs.make``; ``refs`` is
   ``cpu_references()`` (computed here without it)."""
   from myosuite_mjx_tpu_torch.engine import sensors
-  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
-  from myosuite_mjx_tpu_torch.ops import cuda_linalg
   out = {}
   for task_id in LEG_TASKS:
-    card = _task_b16(task_id, DEVICE, torch.float32)
-    if refs:
-      ref, cpu32 = refs[task_id, torch.float64], refs[task_id, torch.float32]
-    else:
-      ref = _task_b16(task_id, "cpu", torch.float64)
-      cpu32 = _task_b16(task_id, "cpu", torch.float32)
-    for f, bound in CARD_CPU_BOUND.items():
-      err = np.abs(card[f] - ref[f]).max(-1)
-      err32 = np.abs(cpu32[f] - ref[f]).max(-1)
-      median_bound = max(bound, FLOAT32_MARGIN * float(np.median(err32)))
-      median = float(np.median(err))
-      flips, flips32 = (err > median_bound).mean(), (err32 > median_bound
-                                                     ).mean()
-      ok = (median <= median_bound and flips <= flips32 + LEG_FLIP_SLACK
-            and np.isfinite(card[f]).all())
-      _say(f"legs {task_id} B=16: card float32 vs cpu float64 after 5 "
-           f"steps, {f}: median env {median:.3e} (bound "
-           f"{median_bound:.3g}; cpu float32 {float(np.median(err32)):.3e}"
-           f"); envs past it {flips:.4f} (cpu float32 {flips32:.4f}, slack "
-           f"{LEG_FLIP_SLACK:g}); worst env {float(err.max()):.3e} (cpu "
-           f"float32 {float(err32.max()):.3e}) {'ok' if ok else 'FAIL'}")
-      if not ok:
-        raise AssertionError(f"{task_id}: card and CPU disagree on {f}")
+    _hold_b16(task_id, refs, "legs")
 
     env = _task_env(task_id)
     m = env.model
@@ -2161,38 +2243,19 @@ def phase_leg_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
     # the body's weight (a mocap opponent carries none)
     weight = float(np.sum(m.body_mass[np.asarray(m.body_mocapid) < 0])
                    * -m.opt.gravity[2])
-    benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
-    torch.cuda.synchronize()
-    cuda_linalg.spd_solve_cuda.launches = 0
-    st = benv.init()
-    g = torch.Generator(device=DEVICE).manual_seed(0)
-    # every clock crosses the horizon once inside the window
-    st = st.replace(steps=env.horizon - torch.randint(
-        1, LEG_STEPS + 1, (B_MAIN,), generator=g, device=DEVICE,
-        dtype=torch.int32))
-    restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
     grounded = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
     margin = torch.full((), np.inf, device=DEVICE)
-    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    t0 = None
-    for i in range(LEG_STEPS):
-      if i == WARMUP:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-      action = torch.rand((B_MAIN, env.action_dim), generator=g,
-                          device=DEVICE)
-      st = benv.step(st, action)
-      restarted |= st.info["terminated"] | st.info["truncated"]
-      grounded |= (st.data.contact.dist < 0).any(-1)
+
+    def on_step(i, prev, st, ended):
+      nonlocal margin
+      grounded.logical_or_((st.data.contact.dist < 0).any(-1))
       pz = st.data.xpos[:, pelvis, 2]
       margin = torch.minimum(margin, torch.minimum(
           pz, pz - _terrain_height(env, st.data)).min())
-      dropped += st.data.ncon_dropped.sum()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    timed = LEG_STEPS - WARMUP
-    rate = timed * B_MAIN * env.frame_skip / seconds
-    launches = cuda_linalg.spd_solve_cuda.launches
+
+    st, run = _drive_b_main(env, LEG_STEPS, on_step)
+    seconds, timed, launches = run["seconds"], run["timed"], run["launches"]
+    rate = run["rate"]
     c = st.data.contact
     active = (c.dist < 0).sum(-1).float()
     grf = sum(sensors.touch_sensor(dm, st.data, s) for s in sites)
@@ -2208,25 +2271,18 @@ def phase_leg_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
          f"per env at the end {float(active.mean()):.3f}; envs with a foot "
          f"on the ground {float(on_ground.float().mean()):.4f} at the end, "
          f"{float(grounded.float().mean()):.4f} at some step; dropped "
-         f"{int(dropped)} in all ({int(dropped) / (LEG_STEPS * B_MAIN):.4f} "
+         f"{run['dropped']} in all "
+         f"({run['dropped'] / (LEG_STEPS * B_MAIN):.4f} "
          f"per env and step); GRF of the four foot sensors, median env "
          f"{float(grf.median()):.1f} N against the body weight "
          f"{weight:.1f} N ({float(grf.median()) / weight:.3f}); lowest "
          f"pelvis over the floor and the terrain {margin:.4f} m; autoreset "
-         f"{int(restarted.sum())} of {B_MAIN} envs")
-    for what, x in (("obs", st.obs), ("reward", st.reward),
-                    ("qpos", st.data.qpos)):
-      if not bool(torch.isfinite(x).all()):
-        raise AssertionError(f"{task_id}: non-finite {what} at B={B_MAIN}")
+         f"{run['restarted']} of {B_MAIN} envs")
+    _b_main_checks(task_id, env, st, run)
     if not margin > 0.0:
       raise AssertionError(f"{task_id}: a pelvis went below the terrain")
     if not bool(grounded.any()):
       raise AssertionError(f"{task_id}: no foot touched the ground")
-    if not bool(restarted.all()) or bool((st.steps >= env.horizon).any()):
-      raise AssertionError(f"{task_id}: an env did not autoreset at its "
-                           f"horizon")
-    if launches <= 0:
-      raise AssertionError(f"{task_id} never launched the SPD kernel")
     out[f"phase14_{task_id}_launches"] = launches
   out["launches"] = sum(out.values())
   return out
@@ -2234,12 +2290,7 @@ def phase_leg_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
 
 def phase_leg_profile() -> dict:
   """14e: ``tools/profile_step.py`` on PROFILE_ENV, in process."""
-  from myosuite_mjx_tpu_torch.ops import cuda_linalg
-  from myosuite_mjx_tpu_torch.tools import profile_step
-  torch.cuda.synchronize()
-  cuda_linalg.spd_solve_cuda.launches = 0
-  profile_step.main(["--env", PROFILE_ENV, "--steps", "1"])
-  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+  return _profile(PROFILE_ENV)
 
 
 def phase_legs(phase4_rate: float, cpu_refs=None) -> dict:
@@ -2483,73 +2534,32 @@ def _hand_arm_checks(env, st, task_id: str, first: bool) -> None:
 def phase_hand_arm_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
   """15c-d: the new hand and arm tasks through ``envs.make``; ``refs`` is
   ``cpu_references()`` (computed here without it)."""
-  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
-  from myosuite_mjx_tpu_torch.ops import cuda_linalg
   out = {}
   for task_id in HAND_ARM_TASKS:
-    card = _task_b16(task_id, DEVICE, torch.float32)
-    if refs:
-      ref, cpu32 = refs[task_id, torch.float64], refs[task_id, torch.float32]
-    else:
-      ref = _task_b16(task_id, "cpu", torch.float64)
-      cpu32 = _task_b16(task_id, "cpu", torch.float32)
-    for f, bound in CARD_CPU_BOUND.items():
-      err = np.abs(card[f] - ref[f]).max(-1)
-      err32 = np.abs(cpu32[f] - ref[f]).max(-1)
-      median_bound = max(bound, FLOAT32_MARGIN * float(np.median(err32)))
-      median = float(np.median(err))
-      flips, flips32 = (err > median_bound).mean(), (err32 > median_bound
-                                                     ).mean()
-      ok = (median <= median_bound and flips <= flips32 + LEG_FLIP_SLACK
-            and np.isfinite(card[f]).all())
-      _say(f"hand-arm {task_id} B=16: card float32 vs cpu float64 after 5 "
-           f"steps, {f}: median env {median:.3e} (bound "
-           f"{median_bound:.3g}; cpu float32 {float(np.median(err32)):.3e}"
-           f"); envs past it {flips:.4f} (cpu float32 {flips32:.4f}, slack "
-           f"{LEG_FLIP_SLACK:g}); worst env {float(err.max()):.3e} (cpu "
-           f"float32 {float(err32.max()):.3e}) {'ok' if ok else 'FAIL'}")
-      if not ok:
-        raise AssertionError(f"{task_id}: card and CPU disagree on {f}")
+    _hold_b16(task_id, refs, "hand-arm")
 
     env = _task_env(task_id)
     m = env.model
-    benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
-    torch.cuda.synchronize()
-    cuda_linalg.spd_solve_cuda.launches = 0
-    st = benv.init()
-    _hand_arm_checks(env, st, task_id, first=True)
-    g = torch.Generator(device=DEVICE).manual_seed(0)
-    # every clock crosses the horizon once inside the window
-    st = st.replace(steps=env.horizon - torch.randint(
-        1, HAND_ARM_STEPS + 1, (B_MAIN,), generator=g, device=DEVICE,
-        dtype=torch.int32))
-    restarted = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    bimanual = task_id.endswith("Bimanual-v0")
     touching = torch.zeros(5, device=DEVICE)
-    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    ended_first = None
-    t0 = None
-    for i in range(HAND_ARM_STEPS):
-      if i == WARMUP:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-      action = torch.rand((B_MAIN, env.action_dim), generator=g,
-                          device=DEVICE)
-      st = benv.step(st, action)
+    ended_first = []
+
+    def on_step(i, prev, st, ended):
       if i == 0:
-        ended_first = float(st.info["terminated"].float().mean())
-      restarted |= st.info["terminated"] | st.info["truncated"]
-      dropped += st.data.ncon_dropped.sum()
-      if task_id.endswith("Bimanual-v0"):
-        touching += env._touching_vec(st.data).sum(0)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    timed = HAND_ARM_STEPS - WARMUP
-    rate = timed * B_MAIN * env.frame_skip / seconds
-    launches = cuda_linalg.spd_solve_cuda.launches
+        ended_first.append(float(st.info["terminated"].float().mean()))
+      if bimanual:
+        touching.add_(env._touching_vec(st.data).sum(0))
+
+    st, run = _drive_b_main(
+        env, HAND_ARM_STEPS, on_step,
+        on_init=lambda st: _hand_arm_checks(env, st, task_id, first=True))
+    seconds, timed, launches = run["seconds"], run["timed"], run["launches"]
+    rate = run["rate"]
+    ended_first = ended_first[0]
     active = (st.data.contact.dist < 0).sum(-1).float()
     _hand_arm_checks(env, st, task_id, first=False)
     extra = ""
-    if task_id.endswith("Bimanual-v0"):
+    if bimanual:
       extra = ("; touching classes (arm, prosthesis, start, goal, other), "
                "env-steps with the class on: "
                + str([int(x) for x in touching.tolist()]))
@@ -2560,23 +2570,15 @@ def phase_hand_arm_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
          f"{phase4_rate:.1f}, {seconds / timed * 1e3:.1f} ms per control "
          f"step; spd_solve launches {launches} ({launches / HAND_ARM_STEPS:.1f}"
          f" per control step); active contacts per env at the end "
-         f"{float(active.mean()):.3f}; dropped {int(dropped)} in all "
-         f"({int(dropped) / (HAND_ARM_STEPS * B_MAIN):.4f} per env and "
+         f"{float(active.mean()):.3f}; dropped {run['dropped']} in all "
+         f"({run['dropped'] / (HAND_ARM_STEPS * B_MAIN):.4f} per env and "
          f"step); envs ended by the task at step 1 {ended_first:.4f}; "
-         f"autoreset {int(restarted.sum())} of {B_MAIN} envs{extra}")
-    for what, x in (("obs", st.obs), ("reward", st.reward),
-                    ("qpos", st.data.qpos)):
-      if not bool(torch.isfinite(x).all()):
-        raise AssertionError(f"{task_id}: non-finite {what} at B={B_MAIN}")
+         f"autoreset {run['restarted']} of {B_MAIN} envs{extra}")
+    _b_main_checks(task_id, env, st, run)
     if ended_first >= 1.0:
       raise AssertionError(f"{task_id}: every env ended at step 1")
-    if task_id.endswith("Bimanual-v0") and not float(touching.sum()) > 0:
+    if bimanual and not float(touching.sum()) > 0:
       raise AssertionError(f"{task_id}: no env reported a touching class")
-    if not bool(restarted.all()) or bool((st.steps >= env.horizon).any()):
-      raise AssertionError(f"{task_id}: an env did not autoreset at its "
-                           f"horizon")
-    if launches <= 0:
-      raise AssertionError(f"{task_id} never launched the SPD kernel")
     out[f"phase15_{task_id}_launches"] = launches
   out["launches"] = sum(out.values())
   return out
@@ -2584,12 +2586,7 @@ def phase_hand_arm_tasks(phase4_rate: float, refs: dict | None = None) -> dict:
 
 def phase_arm_profile() -> dict:
   """15e: ``tools/profile_step.py`` on PROFILE_ARM_ENV, in process."""
-  from myosuite_mjx_tpu_torch.ops import cuda_linalg
-  from myosuite_mjx_tpu_torch.tools import profile_step
-  torch.cuda.synchronize()
-  cuda_linalg.spd_solve_cuda.launches = 0
-  profile_step.main(["--env", PROFILE_ARM_ENV, "--steps", "1"])
-  return {"launches": cuda_linalg.spd_solve_cuda.launches}
+  return _profile(PROFILE_ARM_ENV)
 
 
 def phase_hand_arm(phase4_rate: float, cpu_refs=None) -> dict:
@@ -2606,6 +2603,118 @@ def phase_hand_arm(phase4_rate: float, cpu_refs=None) -> dict:
     _say(f"phase {part}: {time.perf_counter() - t0:.1f} s")
     if "launches" in res:
       out[f"phase{part}_launches"] = res.pop("launches")
+    out.update(res)
+  return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the OSL RunTrack and MyoDM tracking tasks
+# ---------------------------------------------------------------------------
+
+
+def phase_osl_machine() -> dict:
+  """16a: ``osl.step`` on the card (float32) against the port on the CPU
+  (float64) on the same seeded float32 sensor vectors and states."""
+  from myosuite_mjx_tpu_torch.envs import osl
+  rng = np.random.default_rng(0)
+  n = OSL_SAMPLES
+  bw = 63.65 * 9.81
+  state = rng.integers(0, 4, n).astype(np.int32)
+  sens = np.stack([
+      rng.uniform(-1.5, 1.6, n), rng.uniform(-0.3, 0.3, n),
+      rng.uniform(-0.5, 0.5, n), rng.uniform(-2.0, 2.0, n),
+      rng.uniform(-0.1, 0.6, n) * bw], 1).astype(np.float32)
+  p = osl.OSLParams(body_weight=bw)
+  s_card, t_card = osl.step(torch.as_tensor(state, device=DEVICE),
+                            torch.as_tensor(sens, device=DEVICE), p)
+  s_cpu, t_cpu = osl.step(torch.as_tensor(state),
+                          torch.as_tensor(sens).double(), p)
+  s_card, t_card = s_card.cpu().numpy(), t_card.double().cpu().numpy()
+  moved = s_cpu.numpy() != state
+  same = int((s_card == s_cpu.numpy()).sum())
+  err = float(np.abs(t_card - t_cpu.numpy()).max())
+  hist = np.bincount(s_card, minlength=4).tolist()
+  ok = same == n and err <= OSL_TORQUE_BOUND
+  _say(f"osl machine B={n}: card float32 vs cpu float64: states equal "
+       f"{same} of {n}, torque max abs err {err:.3e} N m (bound "
+       f"{OSL_TORQUE_BOUND:g}); transitions {int(moved.sum())}; states "
+       f"after the step {hist} {'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("the OSL machine disagrees between card and CPU")
+  return {}
+
+
+def phase_osl_track_tasks(phase4_rate: float, refs: dict | None = None
+                          ) -> dict:
+  """16b-c: the OSL and tracking tasks through ``envs.make``; ``refs`` is
+  ``cpu_references()`` (computed here without it)."""
+  for task_id in OSL_TRACK_TASKS:
+    _hold_b16(task_id, refs, "osl-track")
+  out = {}
+  for task_id in OSL_TRACK_RATE_TASKS:
+    env = _task_env(task_id)
+    m = env.model
+    osl_task = task_id.startswith("osl54")
+    left0 = torch.zeros(B_MAIN, dtype=torch.bool, device=DEVICE)
+    states = torch.zeros(4, dtype=torch.int64, device=DEVICE)
+    bonus = torch.zeros((), device=DEVICE)
+    contacts = torch.zeros((), device=DEVICE)
+
+    def on_step(i, prev, st, ended):
+      contacts.add_((st.data.contact.dist < 0).sum())
+      if osl_task:
+        # the machine's step is in the pre-reset state: count it in the
+        # envs that did not reset
+        now = st.aux["osl_state"].long()
+        left0.logical_or_((prev.aux["osl_state"] == 0) & (now != 0)
+                          & ~ended)
+        states.add_(torch.bincount(now, minlength=4))
+      else:
+        rwd = env.get_reward_dict(env.get_obs_dict(st.data, st.aux),
+                                  st.data, st.aux)
+        bonus.add_(rwd["bonus"].sum())
+
+    st, run = _drive_b_main(env, OSL_TRACK_STEPS, on_step)
+    seconds, timed, launches = run["seconds"], run["timed"], run["launches"]
+    rate = run["rate"]
+    env_steps = OSL_TRACK_STEPS * B_MAIN
+    extra = (f"; OSL states over env-steps {states.tolist()}, envs that "
+             f"left early stance {int(left0.sum())}" if osl_task else
+             f"; lift bonus in {int(bonus)} env-steps (lift height "
+             f"{env._lift_z:.4f} m)")
+    _say(f"osl-track {task_id} B={B_MAIN} (nv {m.nv}, nu {m.nu}, "
+         f"frame_skip {env.frame_skip}, horizon {env.horizon}): "
+         f"{OSL_TRACK_STEPS} control steps, {timed} timed in {seconds:.3f} "
+         f"s: {rate:.1f} physics-steps/s, {rate / phase4_rate:.3f} of phase "
+         f"4's {phase4_rate:.1f}, {seconds / timed * 1e3:.1f} ms per control "
+         f"step; spd_solve launches {launches} "
+         f"({launches / OSL_TRACK_STEPS:.1f} per control step); active "
+         f"contacts per env and step {float(contacts) / env_steps:.3f}; "
+         f"dropped {run['dropped']} ({run['dropped'] / env_steps:.4f} per "
+         f"env and step); autoreset {run['restarted']} of {B_MAIN} envs"
+         f"{extra}")
+    _b_main_checks(task_id, env, st, run)
+    if osl_task and not bool(left0.any()):
+      raise AssertionError(f"{task_id}: the OSL machine never left early "
+                           f"stance")
+    out[f"phase16_{task_id}_launches"] = launches
+  out["launches"] = sum(out.values())
+  return out
+
+
+def phase_osl_track(phase4_rate: float, cpu_refs=None) -> dict:
+  """Phase 16: 16a and 16b-c, each timed; ``cpu_refs`` is a future of
+  ``cpu_references()``."""
+  refs = cpu_refs.result() if cpu_refs is not None else None
+  out = {}
+  for part, fn, args in (("16a", phase_osl_machine, ()),
+                         ("16bc", phase_osl_track_tasks,
+                          (phase4_rate, refs))):
+    t0 = time.perf_counter()
+    res = fn(*args)
+    _say(f"phase {part}: {time.perf_counter() - t0:.1f} s")
+    if "launches" in res:
+      out["phase16_launches"] = res.pop("launches")
     out.update(res)
   return out
 
@@ -2668,8 +2777,10 @@ def _main_phases(smi: str, cpu_refs) -> int:
                         cpu_refs)
     hand_arm = _timed_phase(15, phase_hand_arm,
                             main_path["physics_steps_per_s"], cpu_refs)
+    osl_track = _timed_phase(16, phase_osl_track,
+                             main_path["physics_steps_per_s"], cpu_refs)
   unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
-  _say(f"spd_solve shapes launched in phases 4-15: {sorted(shapes)}; not "
+  _say(f"spd_solve shapes launched in phases 4-16: {sorted(shapes)}; not "
        f"held against the plain version in phase 3: {sorted(unchecked)}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
@@ -2681,7 +2792,7 @@ def _main_phases(smi: str, cpu_refs) -> int:
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
       "launches": main_path["launches"], **train, **sac, **conditions,
       **cli_run, **proof, "physics_launches": physics["physics_launches"],
-      **contact, **legs, **hand_arm, **kernel}]}))
+      **contact, **legs, **hand_arm, **osl_track, **kernel}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -28,6 +28,10 @@ and mocap bodies (see its docstring).
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
+
 # per finger (index, middle, ring, little): y offset of the knuckle, capsule
 # radius, and the lengths of the proximal, middle and distal phalanges
 _FINGERS = (
@@ -636,13 +640,24 @@ def _leg_muscles(side: str, count: int) -> tuple[dict, str, str]:
           "\n    ".join(tendons), "\n    ".join(actuators))
 
 
-def _leg(side: str, sites: dict) -> str:
-  """One leg from the hip down (femur, tibia, talus, calcn, toes)."""
+def _leg(side: str, sites: dict, knee: str = "", patella: str = "",
+         btm: bool = False) -> str:
+  """One leg from the hip down (femur, tibia, talus, calcn, toes).
+  ``knee`` replaces the tibia's two knee joints, ``patella`` adds MJCF
+  in the femur after its sites, ``btm`` adds ``<s>_heel_btm`` and
+  ``<s>_toe_btm`` sites under the heel and the toe tip."""
   m = 1.0 if side == "l" else -1.0
   s = side
   foot = f'contype="{_FOOT_BITS}" conaffinity="{_GROUND_BITS}"'
   vis = 'contype="0" conaffinity="0"'
   hip = (_LEG_HIP[0], m * _LEG_HIP[1], _LEG_HIP[2])
+  knee = knee or f"""
+          <joint name="knee_angle_{s}" axis="0 1 0" range="0 2.0" damping="4" stiffness="300" armature="0.01"/>
+          <joint name="knee_angle_translation_{s}" type="slide" axis="1 0 0" range="-0.03 0.03" damping="20" armature="0.02"/>"""
+  heel_btm = (f'\n              <site name="{s}_heel_btm" pos="-0.05 0 -0.05"/>'
+              if btm else "")
+  toe_btm = (f'\n                <site name="{s}_toe_btm" pos="0.045 0 -0.03"/>'
+             if btm else "")
   return f"""
       <body name="femur_{s}" pos="{_f(*hip)}">
         <inertial pos="0 0 -0.18" mass="8.5" diaginertia="0.14 0.14 0.025"/>
@@ -652,11 +667,9 @@ def _leg(side: str, sites: dict) -> str:
         <geom name="femur_bone_{s}" type="capsule" fromto="{_f(0, 0, 0, 0, 0, -_FEMUR_LEN)}" size="0.05" {vis}/>
         <geom name="knee_wrap_{s}" type="cylinder" pos="{_f(0, 0, -_FEMUR_LEN)}" zaxis="0 1 0" size="0.04 0.05" {vis}/>
         <site name="knee_front_{s}" pos="{_f(0.08, 0, -_FEMUR_LEN)}"/>
-        <site name="knee_back_{s}" pos="{_f(-0.08, 0, -_FEMUR_LEN)}"/>{sites.get("femur", "")}
+        <site name="knee_back_{s}" pos="{_f(-0.08, 0, -_FEMUR_LEN)}"/>{sites.get("femur", "")}{patella}
         <body name="tibia_{s}" pos="{_f(0, 0, -_FEMUR_LEN)}">
-          <inertial pos="0 0 -0.17" mass="3.6" diaginertia="0.05 0.05 0.006"/>
-          <joint name="knee_angle_{s}" axis="0 1 0" range="0 2.0" damping="4" stiffness="300" armature="0.01"/>
-          <joint name="knee_angle_translation_{s}" type="slide" axis="1 0 0" range="-0.03 0.03" damping="20" armature="0.02"/>
+          <inertial pos="0 0 -0.17" mass="3.6" diaginertia="0.05 0.05 0.006"/>{knee}
           <geom name="tibia_bone_{s}" type="capsule" fromto="{_f(0, 0, -0.03, 0, 0, -_TIBIA_LEN)}" size="0.04" {vis}/>{sites.get("tibia", "")}
           <body name="talus_{s}" pos="{_f(0, 0, -_TIBIA_LEN)}">
             <inertial pos="0 0 -0.02" mass="0.1" diaginertia="0.0002 0.0002 0.0002"/>
@@ -666,13 +679,13 @@ def _leg(side: str, sites: dict) -> str:
               <joint name="subtalar_angle_{s}" axis="{_f(m, 0, 0.3)}" range="-0.35 0.35" damping="2" stiffness="100" armature="0.005"/>
               <geom name="heel_{s}" type="sphere" pos="-0.05 0 -0.02" size="0.03" {foot}/>
               <geom name="sole_{s}" type="capsule" fromto="-0.03 0 -0.025 0.12 0 -0.025" size="0.025" {foot}/>
-              <site name="{s[0]}_foot" pos="0.03 0 -0.04" size="0.09 0.05 0.03" type="box"/>{sites.get("calcn", "")}
+              <site name="{s[0]}_foot" pos="0.03 0 -0.04" size="0.09 0.05 0.03" type="box"/>{heel_btm}{sites.get("calcn", "")}
               <body name="toes_{s}" pos="0.15 0 -0.02">
                 <inertial pos="0.02 0 -0.01" mass="0.2" diaginertia="0.0003 0.0003 0.0003"/>
                 <joint name="mtp_angle_{s}" axis="0 -1 0" range="-0.5 0.9" damping="0.5" stiffness="30" armature="0.002"/>
                 <geom name="toe_bar_{s}" type="capsule" fromto="{_f(0.005, -0.03, -0.01, 0.005, 0.03, -0.01)}" size="0.02" {foot}/>
                 <geom name="toe_tip_{s}" type="sphere" pos="0.045 0 -0.015" size="0.015" {foot}/>
-                <site name="{s[0]}_toes" pos="0.03 0 -0.025" size="0.04 0.05 0.02" type="box"/>{sites.get("toes", "")}
+                <site name="{s[0]}_toes" pos="0.03 0 -0.025" size="0.04 0.05 0.02" type="box"/>{toe_btm}{sites.get("toes", "")}
               </body>
             </body>
           </body>
@@ -1336,3 +1349,528 @@ def bimanual_fixture_xml(digits: int = 5) -> str:
     </body>"""
   return _scene(f"bimanual_fixture_{digits}", arm + pros + pillars + obj,
                 tendons, actuators + "\n    " + pros_actuators)
+
+
+# ---------------------------------------------------------------------------
+# osl54: a trans-femoral two-leg scene at the width of MyoSuite's OSL
+# RunTrack model: a biological left leg, a right hip on the residual femur,
+# and the OSL prosthesis (knee, ankle, foot) below it
+#
+# The frames follow the two-leg scene's; the keyframes face world -y, the
+# run track's forward direction.
+# ---------------------------------------------------------------------------
+
+# the prosthesis's convex hulls collide with the floor plane only: the
+# reference has no hfield-mesh pair, so the terrain leaves them out
+_HULL_BIT = 1 << 2
+# the left knee's coupled joints: name, type, axis, range and the quartic
+# polycoef of the joint equality against knee_angle_l (MyoLeg's knee
+# couples these to the knee angle); the patella carries the beta ones
+_OSL_PATELLA = (
+    ("knee_angle_l_beta_translation2", "slide", (0, 0, 1), (-0.05, 0.05),
+     (0.0, -0.012, 0.004, 0.0, 0.0)),
+    ("knee_angle_l_beta_translation1", "slide", (1, 0, 0), (-0.05, 0.05),
+     (0.0, 0.015, -0.005, 0.0, 0.0)),
+    ("knee_angle_l_beta_rotation1", "hinge", (0, 1, 0), (-1.0, 1.0),
+     (0.0, 0.45, -0.1, 0.0, 0.0)),
+)
+_OSL_TIBIA = (
+    ("knee_angle_l_translation2", "slide", (0, 0, 1), (-0.05, 0.05),
+     (0.0, -0.004, 0.0015, 0.0, 0.0)),
+    ("knee_angle_l_translation1", "slide", (1, 0, 0), (-0.05, 0.05),
+     KNEE_POLYCOEF),
+    ("knee_angle_l_rotation2", "hinge", (1, 0, 0), (-0.3, 0.3),
+     (0.0, 0.05, -0.02, 0.0, 0.0)),
+    ("knee_angle_l_rotation3", "hinge", (0, 0, 1), (-0.3, 0.3),
+     (0.0, -0.04, 0.015, 0.0, 0.0)),
+)
+# every muscle of the OSL scene by its MyoSuite name (without the side) ->
+# the two-leg scene's template whose path it takes; the k-th use of a
+# template on a side shifts its sites, as in ``_leg_muscles``
+_OSL_MUSCLE_TEMPLATE = {
+    "addbrev": "addlong", "addlong": "addlong", "addmagDist": "addlong",
+    "addmagIsch": "addlong", "addmagMid": "addlong", "addmagProx": "addlong",
+    "grac": "addlong", "bflh": "bflh", "bfsh": "bflh", "semimem": "bflh",
+    "semiten": "bflh", "edl": "edl", "ehl": "edl", "fdl": "fdl",
+    "fhl": "fdl", "gaslat": "gastroc", "gasmed": "gastroc",
+    "glmax1": "glmax", "glmax2": "glmax", "glmax3": "glmax",
+    "glmed1": "glmed", "glmed2": "glmed", "glmed3": "glmed",
+    "glmin1": "glmed", "glmin2": "glmed", "glmin3": "glmed", "tfl": "glmed",
+    "iliacus": "iliacus", "psoas": "iliacus", "perbrev": "perlong",
+    "perlong": "perlong", "piri": "piri", "recfem": "recfem", "sart": "sart",
+    "soleus": "soleus", "tibant": "tibant", "tibpost": "tibpost",
+    "vasint": "vasint", "vaslat": "vasint", "vasmed": "vasint",
+}
+# the prosthesis: knee and ankle motors' gears (the controller's peak
+# torques, ctrl in [-1, 1]) and the hulls: hexagonal prisms along the
+# joint axis, (radius, half length)
+OSL_GEAR = (142.272, 168.192)
+_OSL_KNEE_HULL = (0.048, 0.045)
+_OSL_ANKLE_HULL = (0.04, 0.0325)
+# the track: 480 rows along y over +-60 m (0.25 m per row), 10 columns
+# along x over +-1 m, heights in metres (the RunTrack ids' track spans
+# x in +-1 and y in [-45, 60])
+_OSL_HFIELD = (480, 10, (1.0, 60.0, 1.0, 0.1))
+# the keyframes' heading: facing world -y
+_OSL_YAW_QUAT = (0.70710678, 0.0, 0.0, -0.70710678)
+# the gait table's rows
+_OSL_GAIT_ROWS = 247
+
+
+def _prism_vertices(radius: float, half: float) -> str:
+  """A hexagonal prism along y centred at the origin (12 vertices)."""
+  ang = [i * math.pi / 3 for i in range(6)]
+  verts = [(radius * math.cos(a), y, radius * math.sin(a))
+           for y in (-half, half) for a in ang]
+  return " ".join(_f(*v) for v in verts)
+
+
+def _joint_xml(name, kind, axis, rng, extra="") -> str:
+  return (f'<joint name="{name}" type="{kind}" axis="{_f(*axis)}" '
+          f'range="{_f(*rng)}"{extra}/>')
+
+
+def _osl_muscles() -> tuple[dict, str, str]:
+  """The 54 muscles named as MyoSuite's OSL model (``BIOLOGICAL_ACT`` of
+  the run-track task), in its order: their sites per (side, body), the
+  spatial tendons and the actuators."""
+  from myosuite_mjx_tpu_torch.envs.run_track import BIOLOGICAL_ACT
+  templates = {t[0]: t[1:] for t in _LEG_MUSCLES}
+  uses: dict[tuple, int] = {}
+  sites: dict[tuple, list[str]] = {}
+  tendons, actuators = [], []
+  for mname in BIOLOGICAL_ACT:
+    base, side = mname.rsplit("_", 1)
+    tname = _OSL_MUSCLE_TEMPLATE[base]
+    force, path = templates[tname]
+    k = uses.get((side, tname), 0)
+    uses[side, tname] = k + 1
+    mirror = 1.0 if side == "l" else -1.0
+    shift = (0.004 * k, 0.003 * k * (-1) ** k, -0.005 * k)
+    parts = []
+    for j, point in enumerate(path):
+      if point[0] == "wrap":
+        side_site = f' sidesite="{point[2]}_{side}"' if point[2] else ""
+        parts.append(f'<geom geom="{point[1]}_{side}"{side_site}/>')
+        continue
+      body, (x, y, z) = point
+      sname = f"{mname}_p{j}"
+      pos = (x + shift[0], mirror * (y + shift[1]), z + shift[2])
+      sites.setdefault((side, body), []).append(
+          f'<site name="{sname}" pos="{_f(*pos)}"/>')
+      parts.append(f'<site site="{sname}"/>')
+    tendons.append(f'<spatial name="{mname}_t">{"".join(parts)}</spatial>')
+    actuators.append(_muscle(mname, force * (0.9 + 0.05 * k)))
+  return ({key: "".join(s) for key, s in sites.items()},
+          "\n    ".join(tendons), "\n    ".join(actuators))
+
+
+def _osl_prosthesis(sites: dict) -> str:
+  """The right leg: the residual femur on the hip's three joints, then the
+  OSL knee, ankle and foot with its sensor sites."""
+  hip = (_LEG_HIP[0], -_LEG_HIP[1], _LEG_HIP[2])
+  vis = 'contype="0" conaffinity="0"'
+  hull = f'contype="{_HULL_BIT}" conaffinity="0"'
+  foot = f'contype="{_FOOT_BITS}" conaffinity="{_GROUND_BITS}"'
+  return f"""
+      <body name="femur_r" pos="{_f(*hip)}">
+        <inertial pos="0 0 -0.12" mass="6.0" diaginertia="0.08 0.08 0.015"/>
+        <joint name="hip_flexion_r" axis="0 -1 0" range="-0.5 1.6" damping="4" stiffness="300" armature="0.01"/>
+        <joint name="hip_adduction_r" axis="1 0 0" range="-0.5 0.5" damping="4" stiffness="300" armature="0.01"/>
+        <joint name="hip_rotation_r" axis="0 0 -1" range="-0.6 0.6" damping="4" stiffness="150" armature="0.01"/>
+        <geom name="femur_bone_r" type="capsule" fromto="0 0 0 0 0 -0.25" size="0.05" {vis}/>
+        <geom name="osl_socket" type="capsule" fromto="0 0 -0.22 0 0 -0.34" size="0.06" {vis}/>{sites.get(("r", "femur"), "")}
+        <body name="osl_knee_assembly" pos="{_f(0, 0, -_FEMUR_LEN)}">
+          <inertial pos="0 0 -0.12" mass="1.2" diaginertia="0.02 0.02 0.002"/>
+          <joint name="osl_knee_angle_r" axis="0 1 0" range="0 2.0" damping="2" armature="0.01"/>
+          <geom name="osl_knee_assembly_geom_1" type="mesh" mesh="osl_knee" {hull}/>
+          <geom name="osl_pylon" type="capsule" fromto="0 0 -0.05 0 0 -0.36" size="0.015" {vis}/>
+          <site name="r_socket_load" pos="0 0 0.02" euler="1.5707963 0 0"/>
+          <body name="osl_ankle_assembly" pos="{_f(0, 0, -_TIBIA_LEN)}">
+            <inertial pos="0 0 -0.01" mass="0.7" diaginertia="0.002 0.002 0.001"/>
+            <joint name="osl_ankle_angle_r" axis="0 -1 0" range="-0.5 0.5" damping="1" armature="0.005"/>
+            <geom name="osl_ankle_assembly_geom_1" type="mesh" mesh="osl_ankle" {hull}/>
+            <site name="r_osl_load" pos="0 0 0.02" euler="1.5707963 0 0"/>
+            <body name="osl_foot_assembly" pos="{_f(0, 0, -_TALUS_LEN)}">
+              <inertial pos="0.05 0 -0.02" mass="0.6" diaginertia="0.002 0.002 0.0006"/>
+              <geom name="osl_heel" type="sphere" pos="-0.05 0 -0.02" size="0.03" {foot}/>
+              <geom name="osl_sole" type="capsule" fromto="-0.03 0 -0.025 0.12 0 -0.025" size="0.025" {foot}/>
+              <geom name="osl_toe_bar" type="capsule" fromto="0.155 0.03 -0.03 0.155 -0.03 -0.03" size="0.02" {foot}/>
+              <geom name="osl_toe_tip" type="sphere" pos="0.195 0 -0.035" size="0.015" {foot}/>
+              <site name="r_osl_foot" pos="0.07 0 -0.04" size="0.14 0.05 0.03" type="box"/>
+              <site name="r_heel_btm" pos="-0.05 0 -0.05"/>
+              <site name="r_toe_btm" pos="0.195 0 -0.05"/>
+            </body>
+          </body>
+        </body>
+      </body>"""
+
+
+def _osl_joint_order() -> list[str]:
+  """The scene's joints after the root, in qpos order."""
+  left = ["hip_flexion_l", "hip_adduction_l", "hip_rotation_l"]
+  left += [j[0] for j in _OSL_PATELLA]
+  left += ["knee_angle_l_translation2", "knee_angle_l_translation1",
+           "knee_angle_l", "knee_angle_l_rotation2", "knee_angle_l_rotation3",
+           "ankle_angle_l", "subtalar_angle_l", "mtp_angle_l"]
+  return left + ["hip_flexion_r", "hip_adduction_r", "hip_rotation_r",
+                 "osl_knee_angle_r", "osl_ankle_angle_r"]
+
+
+def _couple(q: float, coef) -> float:
+  return sum(c * q ** i for i, c in enumerate(coef))
+
+
+def _osl_pose(joints: dict) -> dict:
+  """Joint values by name with the left knee's coupled joints set on
+  their curves from ``knee_angle_l`` (0 for joints not given)."""
+  out = {j: 0.0 for j in _osl_joint_order()}
+  out.update(joints)
+  for name, *_, coef in _OSL_PATELLA + _OSL_TIBIA:
+    out[name] = _couple(out["knee_angle_l"], coef)
+  return out
+
+
+def _osl_key(joints: dict, speed: float, drop: float = 0.0) -> str:
+  """A keyframe: the pelvis ``drop`` m under the standing height facing
+  -y at ``speed`` m/s forward, and the joints (``_osl_pose``)."""
+  pose = _osl_pose(joints)
+  qpos = [0.0, 0.0, _PELVIS_HEIGHT - drop, *_OSL_YAW_QUAT]
+  qpos += [pose[j] for j in _osl_joint_order()]
+  qvel = [0.0, -speed] + [0.0] * (4 + len(pose))
+  return f'<key qpos="{_f(*qpos)}" qvel="{_f(*qvel)}"/>'
+
+
+# standing at a walk's speed (OSL in early stance); the OSL leg in early
+# swing; the OSL heel strike with the left leg pushing off
+_OSL_KEYS = (
+    (dict(), 1.0, 0.0),
+    (dict(hip_flexion_r=0.4, osl_knee_angle_r=0.8, osl_ankle_angle_r=0.1,
+          hip_flexion_l=-0.15, knee_angle_l=0.1, ankle_angle_l=0.05),
+     1.2, 0.01),
+    (dict(hip_flexion_r=0.3, osl_knee_angle_r=0.05, hip_flexion_l=-0.3,
+          knee_angle_l=0.4, ankle_angle_l=-0.2), 1.2, 0.03),
+)
+
+
+def osl_fixture_xml() -> str:
+  """MJCF text of the synthetic OSL RunTrack scene ("osl54").
+
+  - ``pelvis`` on a free joint with the ``torso`` welded on top and a
+    ``head`` site 1.71 m over the floor when standing;
+  - a biological left leg with MyoSuite's 14 left joints: the hip's
+    three, ``knee_angle_l`` and, coupled to it by joint equalities,
+    ``knee_angle_l_translation1/2`` and ``_rotation2/3`` (tibia) and the
+    three ``_beta_`` joints (a ``patella_l`` body); ankle, subtalar and
+    mtp; touch sites ``l_foot`` and ``l_toes``, ``l_heel_btm`` and
+    ``l_toe_btm``;
+  - the right hip's three joints on the residual ``femur_r``, then the
+    OSL chain: ``osl_knee_assembly`` (``osl_knee_angle_r``),
+    ``osl_ankle_assembly`` (``osl_ankle_angle_r``) and
+    ``osl_foot_assembly``; the knee and ankle carry convex prism hulls
+    (inline meshes, as the JAX package substitutes for the missing
+    prosthesis meshes), colliding with the floor only; force sensors
+    ``r_socket_load`` and ``r_osl_load`` on sites whose y axis points up
+    the shank, touch ``r_osl_foot``, ``r_heel_btm`` and ``r_toe_btm``;
+  - the 54 muscles named as MyoSuite's (``run_track.BIOLOGICAL_ACT``) on
+    the two-leg scene's paths, then motors ``osl_knee_torque_actuator``
+    and ``osl_ankle_torque_actuator`` (gear ``OSL_GEAR``, ctrl in
+    [-1, 1]): nu 56, na 54, nv 25;
+  - a floor plane and the track hfield ``terrain`` (``_OSL_HFIELD``, flat
+    until a task overlays it) centred at the origin;
+  - three keyframes facing -y with a forward speed: standing, the OSL leg
+    in early swing, the OSL heel strike.
+  """
+  sites, tendons, muscles = _osl_muscles()
+  leg_sites = {b: s for (side, b), s in sites.items() if side == "l"}
+  coupled = lambda joints, extra: "".join(
+      f"\n          {_joint_xml(n, k, a, r, extra)}"
+      for n, k, a, r, _ in joints)
+  tibia = _OSL_TIBIA[:2]
+  knee = (coupled(tibia, ' damping="20" armature="0.02"')
+          + '\n          <joint name="knee_angle_l" axis="0 1 0" range="0 2.0" '
+            'damping="4" stiffness="300" armature="0.01"/>'
+          + coupled(_OSL_TIBIA[2:], ' damping="2" armature="0.01"'))
+  patella = f"""
+        <body name="patella_l" pos="{_f(0.05, 0, -_FEMUR_LEN + 0.02)}">
+          <inertial pos="0 0 0" mass="0.05" diaginertia="0.00001 0.00001 0.00001"/>{coupled(_OSL_PATELLA, ' damping="1" armature="0.005"')}
+          <geom name="patella_bone" type="sphere" size="0.02" contype="0" conaffinity="0"/>
+        </body>"""
+  left = _leg("l", leg_sites, knee=knee, patella=patella, btm=True)
+  pelvis_sites = sites.get(("l", "pelvis"), "") + sites.get(("r", "pelvis"),
+                                                            "")
+  hip_parts = "".join(
+      f"""
+      <geom name="hip_wrap_{s}" type="sphere" pos="{_f(_LEG_HIP[0], m * _LEG_HIP[1], _LEG_HIP[2])}" size="0.035" contype="0" conaffinity="0"/>
+      <site name="hip_front_{s}" pos="{_f(0.07, m * _LEG_HIP[1], _LEG_HIP[2])}"/>"""
+      for s, m in (("l", 1.0), ("r", -1.0)))
+  equalities = "\n    ".join(
+      f'<joint joint1="{n}" joint2="knee_angle_l" polycoef="{_f(*c)}"/>'
+      for n, *_, c in _OSL_PATELLA + _OSL_TIBIA)
+  motors = "\n    ".join(
+      f'<motor name="osl_{j}_torque_actuator" joint="osl_{j}_angle_r" '
+      f'gear="{g:g}" ctrlrange="-1 1"/>'
+      for j, g in zip(("knee", "ankle"), OSL_GEAR))
+  keys = "\n    ".join(_osl_key(*k) for k in _OSL_KEYS)
+  nrow, ncol, size = _OSL_HFIELD
+  ground = f'contype="{_GROUND_BITS}"'
+  return f"""<mujoco model="osl54">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>
+  <asset>
+    <hfield name="terrain" nrow="{nrow}" ncol="{ncol}" size="{_f(*size)}"/>
+    <mesh name="osl_knee" vertex="{_prism_vertices(*_OSL_KNEE_HULL)}"/>
+    <mesh name="osl_ankle" vertex="{_prism_vertices(*_OSL_ANKLE_HULL)}"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 70 0.1" {ground} conaffinity="{_GROUND_BITS | _FOOT_BITS | _HULL_BIT}"/>
+    <geom name="terrain" type="hfield" hfield="terrain" {ground} conaffinity="{_GROUND_BITS | _FOOT_BITS}"/>
+    <body name="pelvis" pos="{_f(0, 0, _PELVIS_HEIGHT)}" quat="{_f(*_OSL_YAW_QUAT)}">
+      <freejoint name="root"/>
+      <inertial pos="0 0 0" mass="11.5" diaginertia="0.1 0.09 0.08"/>
+      <geom name="pelvis_bone" type="capsule" fromto="0 -0.1 0 0 0.1 0" size="0.07" contype="0" conaffinity="0"/>
+      <site name="pelvis"/>{hip_parts}{pelvis_sites}
+      <body name="torso" pos="0 0 0.1">
+        <inertial pos="0 0 0.24" mass="30" diaginertia="1.3 1.2 0.3"/>
+        <geom name="torso_bone" type="capsule" fromto="0 0 0.05 0 0 0.45" size="0.13" contype="0" conaffinity="0"/>
+        <site name="head" pos="0 0 0.65"/>
+      </body>{left}{_osl_prosthesis(sites)}
+    </body>
+  </worldbody>
+  <equality>
+    {equalities}
+  </equality>
+  <tendon>
+    {tendons}
+  </tendon>
+  <actuator>
+    {muscles}
+    {motors}
+  </actuator>
+  <sensor>
+    <touch name="l_foot" site="l_foot"/>
+    <touch name="l_toes" site="l_toes"/>
+    <touch name="r_osl_foot" site="r_osl_foot"/>
+    <force name="r_osl_load" site="r_osl_load"/>
+    <force name="r_socket_load" site="r_socket_load"/>
+  </sensor>
+  <keyframe>
+    {keys}
+  </keyframe>
+</mujoco>
+"""
+
+
+def _smooth(x: np.ndarray) -> np.ndarray:
+  """A smooth step over [0, 1]."""
+  x = np.clip(x, 0.0, 1.0)
+  return x * x * (3.0 - 2.0 * x)
+
+
+def _gait_leg(phase: np.ndarray) -> dict:
+  """One leg's hip, knee and ankle over a gait cycle starting at toe-off
+  (swing for the first 40%, then stance)."""
+  swing = phase < 0.4
+  knee = np.where(swing, 1.0 * np.sin(np.pi * phase / 0.4),
+                  0.15 * np.sin(np.pi * (phase - 0.4) / 0.6))
+  hip = 0.4 * np.cos(2 * np.pi * (phase - 0.35))
+  ankle = np.where(swing, 0.1,
+                   0.05 - 0.2 * np.clip((phase - 0.75) / 0.25, 0, 1))
+  return dict(hip=hip, knee=knee, ankle=ankle)
+
+
+def osl_gait_table() -> tuple[list[str], np.ndarray]:
+  """The synthetic gait cycle of the OSL scene: (header, rows
+  [_OSL_GAIT_ROWS, columns]), the columns the run-track task's
+  ``osl_init`` reset reads: joints (the left knee's coupled joints on
+  their curves), the pelvis's Euler angles (facing -y), the feet's
+  positions relative to the pelvis and the pelvis's velocity in its
+  heading frame. The OSL leg swings for the first 99 rows and stands for
+  the rest, as the reference's row-to-state map has it; the left leg is
+  half a cycle behind."""
+  phase = np.arange(_OSL_GAIT_ROWS) / _OSL_GAIT_ROWS
+  r, l = _gait_leg(phase), _gait_leg((phase + 0.5) % 1.0)
+  c, s = np.cos(2 * np.pi * phase), np.sin(2 * np.pi * phase)
+  cols = {
+      "hip_flexion_l": l["hip"], "hip_adduction_l": 0.05 * s,
+      "hip_rotation_l": 0.04 * c, "knee_angle_l": l["knee"],
+      "ankle_angle_l": l["ankle"], "subtalar_angle_l": 0.02 * s,
+      "mtp_angle_l": 0.2 * np.clip(1 - np.abs(((phase + 0.5) % 1.0)
+                                               - 0.95) / 0.1, 0, 1),
+      "hip_flexion_r": r["hip"], "hip_adduction_r": -0.05 * s,
+      "hip_rotation_r": -0.04 * c, "osl_knee_angle_r": r["knee"],
+      "osl_ankle_angle_r": r["ankle"],
+  }
+  for name, *_, coef in _OSL_PATELLA + _OSL_TIBIA:
+    cols[name] = _couple(cols["knee_angle_l"], coef)
+  cols.update({
+      "pelvis_euler_roll": 0.03 * s,
+      "pelvis_euler_pitch": 0.05 + 0.02 * np.sin(4 * np.pi * phase),
+      "pelvis_euler_yaw": -np.pi / 2 + 0.04 * s,
+      "l_foot_relative_X": 0.25 * np.sin(2 * np.pi * (phase + 0.5)),
+      "l_foot_relative_Y": np.full_like(phase, 0.085),
+      "l_foot_relative_Z": -0.9 + 0.05 * l["knee"],
+      "r_foot_relative_X": 0.25 * s,
+      "r_foot_relative_Y": np.full_like(phase, -0.085),
+      "r_foot_relative_Z": -0.9 + 0.05 * r["knee"],
+      "pelvis_vel_X": 1.3 + 0.1 * np.cos(4 * np.pi * phase),
+      "pelvis_vel_Y": 0.03 * s,
+      "pelvis_vel_Z": 0.1 * np.sin(4 * np.pi * phase),
+  })
+  header = list(cols)
+  return header, np.round(np.stack([cols[h] for h in header], 1), 6)
+
+
+def osl_gait_csv() -> str:
+  """``osl_gait_table`` as CSV text: a header line, then one line per
+  row."""
+  header, rows = osl_gait_table()
+  lines = [",".join(header)]
+  lines += [",".join(f"{x:.6f}" for x in row) for row in rows]
+  return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# track: MyoDM's tracking scene, a hand on a 6-dof base over a table with
+# one object on 3 slides and 3 hinges
+# ---------------------------------------------------------------------------
+
+_TRACK_OBJECT = "cubesmall"
+_CUBE_HALF = 0.025
+# the object rests on the table at the reference's height of 0.1
+_TRACK_TABLE = 0.1 - _CUBE_HALF
+# the forearm (the base body) with the palm over the object, palm down
+_TRACK_FOREARM = (-0.16, 0.0, 0.156)
+# base joints: name, type, axis, half range, damping, position gain
+_TRACK_BASE = (
+    ("ARTx", "slide", (1, 0, 0), 0.05, 30.0, 1500.0),
+    ("ARTy", "slide", (0, 1, 0), 0.05, 30.0, 1500.0),
+    ("ARTz", "slide", (0, 0, 1), 0.05, 30.0, 1500.0),
+    ("ARRx", "hinge", (1, 0, 0), 0.3, 1.0, 30.0),
+    ("ARRy", "hinge", (0, 1, 0), 0.3, 1.0, 30.0),
+    ("ARRz", "hinge", (0, 0, 1), 0.3, 1.0, 30.0),
+)
+
+
+def track_fixture_xml(digits: int = 5) -> str:
+  """MJCF text of the tracking scene: the hand (``hand_fixture_xml``'s
+  digits) palm down, its forearm on six base joints ``ARTx``/``y``/``z``
+  (slides) and ``ARRx``/``y``/``z`` (hinges) driven by position actuators
+  after the muscles; the palm body is named ``lunate`` (MyoHand's wrist
+  bone), with a colliding pad under it. ``cubesmall``, a convex mesh cube
+  of 5 cm on slides ``OBJTx``/``y``/``z`` and hinges ``OBJRx``/``y``/``z``
+  (so its Euler angles are intrinsic XYZ), rests on a ``table`` plane at
+  the reference's height under the palm at qpos (0, 0, 0.1). It collides
+  with the table, the distal phalanges and the pad. The robot's dofs come
+  first: digits 5 gives track29 (29 robot dofs, MyoDM's width; nv 35),
+  digits 2 track17 (nv 23).
+  """
+  inner = "".join(
+      f"\n      {_joint_xml(n, k, a, (-h, h), f' damping={chr(34)}{d:g}{chr(34)} armature={chr(34)}0.01{chr(34)}')}"
+      for n, k, a, h, d, _ in _TRACK_BASE)
+  palm_pad = f"""
+          <geom name="palm_pad" type="capsule" fromto="0.012 -0.01 -0.006 0.062 -0.01 -0.006" size="0.02" contype="{_PALM_BIT}" conaffinity="0"/>"""
+  body, tendons, muscles = _forearm_body(
+      digits, f'pos="{_f(*_TRACK_FOREARM)}"', 'axis="1 0 0" range="-1.0 1.0"',
+      palm_pad, inner=inner)
+  body = body.replace('<body name="palm" ', '<body name="lunate" ', 1)
+  h = _CUBE_HALF
+  verts = " ".join(_f(x, y, z) for x in (-h, h) for y in (-h, h)
+                   for z in (-h, h))
+  obj_bits = f'contype="{_OBJECT_BIT}" conaffinity="{1 | _PALM_BIT}"'
+  obj_joints = "".join(
+      f'\n      <joint name="OBJT{a}" type="slide" axis="{_f(*v)}" damping="0.01"/>'
+      for a, v in zip("xyz", ((1, 0, 0), (0, 1, 0), (0, 0, 1))))
+  obj_joints += "".join(
+      f'\n      <joint name="OBJR{a}" type="hinge" axis="{_f(*v)}" damping="0.0002" armature="0.00002"/>'
+      for a, v in zip("xyz", ((1, 0, 0), (0, 1, 0), (0, 0, 1))))
+  obj = f"""
+    <body name="{_TRACK_OBJECT}" pos="0 0 0">{obj_joints}
+      <geom name="{_TRACK_OBJECT}" type="mesh" mesh="{_TRACK_OBJECT}" mass="0.05" {obj_bits}/>
+      <site name="object_o" size="0.005"/>
+    </body>"""
+  base = "\n    ".join(
+      f'<position name="{n}" joint="{n}" kp="{kp:g}" ctrlrange="{_f(-hr, hr)}"/>'
+      for n, _, _, hr, _, kp in _TRACK_BASE)
+  return f"""<mujoco model="track{9 + 4 * digits}">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>
+  <asset>
+    <mesh name="{_TRACK_OBJECT}" vertex="{verts}"/>
+  </asset>
+  <worldbody>
+    <geom name="table" type="plane" pos="0 0 {_TRACK_TABLE:g}" size="0.6 0.6 0.05" contype="1" conaffinity="1"/>{body}{obj}
+  </worldbody>
+  <tendon>{tendons}
+  </tendon>
+  <actuator>
+    {muscles}
+    {base}
+  </actuator>
+</mujoco>
+"""
+
+
+def _track_robot(t: np.ndarray, rd: int, s: np.ndarray, kind: str):
+  """A robot trajectory [T, rd] (base dofs first) and its time
+  derivative, for a smooth step ``s`` of time ``t``."""
+  ds = np.gradient(s, t)
+  j = np.arange(rd - 6)
+  pattern = 0.15 * np.sin(1.3 * (j + 1) + (0.0 if kind == "lift" else 0.7))
+  robot = np.zeros((len(t), rd))
+  vel = np.zeros((len(t), rd))
+  base = {"lift": (2, 0.04), "inspect": (3, 0.1)}[kind]
+  robot[:, base[0]] = base[1] * s
+  vel[:, base[0]] = base[1] * ds
+  robot[:, 6:] = s[:, None] * pattern
+  vel[:, 6:] = ds[:, None] * pattern
+  return robot, vel
+
+
+def _axis_quat(axis, angle: np.ndarray) -> np.ndarray:
+  a = np.asarray(axis, np.float64)
+  return np.concatenate([np.cos(angle / 2)[:, None],
+                         np.sin(angle / 2)[:, None] * a], 1)
+
+
+def _quat_mul(u: np.ndarray, v: np.ndarray) -> np.ndarray:
+  w1, x1, y1, z1 = u.T
+  w2, x2, y2, z2 = v.T
+  return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                   w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                   w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                   w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], 1)
+
+
+def track_clips(digits: int = 5) -> dict[str, dict[str, np.ndarray]]:
+  """Synthetic MyoDM clips for the tracking scene of ``digits``: clip name
+  -> {time, robot, [robot_vel,] object}. ``lift`` (2 s, 41 frames, with
+  ``robot_vel``): the object rises 5 cm from its resting pose turning
+  0.3 rad about z while the base rises; ``inspect`` (1.2 s, 25 frames,
+  no ``robot_vel``: the task takes the time gradient): the object rises
+  2 cm, sways along x and turns about x and z. Object quaternions are
+  unit; every clip starts at the object's resting pose (0, 0, 0.1)."""
+  rd = 9 + 4 * digits
+  out = {}
+  for kind, (duration, frames) in (("lift", (2.0, 41)),
+                                   ("inspect", (1.2, 25))):
+    t = np.round(np.linspace(0.0, duration, frames), 4)
+    s = _smooth(t / duration)
+    robot, vel = _track_robot(t, rd, s, kind)
+    pos = np.zeros((frames, 3))
+    pos[:, 2] = 0.1
+    if kind == "lift":
+      pos[:, 2] += 0.05 * s
+      quat = _axis_quat((0, 0, 1), 0.3 * s)
+    else:
+      pos[:, 0] = 0.01 * np.sin(np.pi * t / duration)
+      pos[:, 2] += 0.02 * s
+      quat = _quat_mul(_axis_quat((1, 0, 0), 0.6 * s),
+                       _axis_quat((0, 0, 1), 0.2 * s))
+    quat = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    clip = {"time": t, "robot": robot, "object": np.concatenate(
+        [pos, quat], 1)}
+    if kind == "lift":
+      clip["robot_vel"] = vel
+    out[kind] = clip
+  return out

@@ -351,13 +351,19 @@ class MyoEnv:
       aux = self._reset_aux(qpos.shape[0], dm.device, generator)
     return self._reset_from(dm, qpos, qvel, aux, generator)
 
+  def control(self, state: EnvState, action: torch.Tensor):
+    """(ctrl [B, nu], aux) for a control step: the action mapped to ctrl,
+    then the muscle condition. A task whose controller drives some
+    actuators itself overrides this."""
+    return self._apply_muscle_condition(
+        self._action_to_ctrl(action.to(self.dtype)), state.aux)
+
   def step(self, state: EnvState, action: torch.Tensor,
            generator: torch.Generator | None = None) -> EnvState:
-    """One control step: ctrl from the action and the muscle condition,
-    then frame_skip substeps."""
+    """One control step: ctrl from ``control``, then frame_skip
+    substeps."""
     dm = self.device_model(state.data.qpos.device)
-    ctrl, aux = self._apply_muscle_condition(
-        self._action_to_ctrl(action.to(self.dtype)), state.aux)
+    ctrl, aux = self.control(state, action)
     d = state.data.replace(ctrl=ctrl)
     for _ in range(self.frame_skip - 1):
       d = forward_mod.step(dm, d, full_data=False)

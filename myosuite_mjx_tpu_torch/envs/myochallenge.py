@@ -14,7 +14,12 @@ place of MyoSuite's (not in the repository):
 - ``<arm>Bimanual-v0`` on the bimanual scene (``<arm>_bimanual.npz``) in
   place of myoarm_bionic_bimanual.xml;
 - ``<legs>ChaseTagP1-v0`` and ``P2-v0`` on the two-leg scene with its
-  opponent (``<legs>_chasetag.npz``) in place of myolegs_chasetag.xml.
+  opponent (``<legs>_chasetag.npz``) in place of myolegs_chasetag.xml;
+- ``osl54OslRunFixed-v0`` and ``osl54OslRunRandom-v0`` on the OSL scene
+  (``osl54.npz``, at the OSL model's width: no narrower variant, since the
+  task looks up its 54 muscles by name) in place of myoosl_runtrack.xml,
+  with the synthetic gait table ``osl54_gait_cycle.csv`` in place of
+  sample_gait_cycle.csv.
 
 They take no muscle-condition variants: the reference registers
 MyoChallenge after the variant loop.
@@ -105,3 +110,32 @@ for _legs in ("legs80", "legs16"):
                          normalize_act=True, win_distance=0.5,
                          min_spawn_distance=2,
                          opponent_probabilities=(0.1, 0.45, 0.45), **_kw))
+
+# ---- OSL RunTrack on the osl54 scene, its gait table as init_pose_path ----
+
+from myosuite_mjx_tpu_torch.envs.run_track import RunTrackEnv  # noqa: E402
+
+# the Random track's 24-patch difficulty ramp
+_ramp = ((0.0,) * 5
+         + tuple(x for i in range(8) for x in (0.03 * (i + 1), 0.0))[:-1]
+         + (0.0,) * 4)
+
+OSL_RUN = {
+    "Fixed": dict(
+        terrain="flat",
+        hills_difficulties=(0.0, 0.1, 0.0, 0.5, 0.0, 0.8, 0.0, 1.0),
+        rough_difficulties=(0.0, 0.1, 0.0, 0.15, 0.0, 0.2, 0.0, 0.3),
+        stairs_difficulties=(0.0, 0.05, 0.0, 0.1, 0.0, 0.2, 0.0, 0.3),
+        end_pos=-15, start_pos=14, max_episode_steps=1000),
+    "Random": dict(
+        terrain="random", hills_difficulties=_ramp,
+        rough_difficulties=_ramp, stairs_difficulties=_ramp, end_pos=-45,
+        start_pos=58, max_episode_steps=60000),
+}
+
+for _name, _kw in OSL_RUN.items():
+  register(f"osl54OslRun{_name}-v0", RunTrackEnv,
+           max_episode_steps=_kw["max_episode_steps"],
+           kwargs=dict(model_path=asset("osl54.npz"), normalize_act=True,
+                       reset_type="random", frame_skip=5,
+                       init_pose_path=asset("osl54_gait_cycle.csv"), **_kw))

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from torch_parity import (FIXTURE_NPZ, HAND_TARGET, LEGS, NPZ, OBJECTS, SAR,
-                          TASK_SCENES, export_model, fixture_xml, jax_model)
+                          TASK_SCENES, TRACK, export_model, fixture_xml,
+                          jax_model)
 from myosuite_mjx_tpu.engine import model as jmodel
 from myosuite_mjx_tpu_torch.engine import api, collision
 from myosuite_mjx_tpu_torch.engine import data as tdata
@@ -48,7 +49,8 @@ def _assert_models_equal(a: tmodel.Model, b: tmodel.Model):
 
 @pytest.mark.parametrize("digits", [2, 5, "free", "prims", *(
     f"{obj}{d}" for obj in OBJECTS for d in (2, 5)), *LEGS, "plate",
-    "hulls", *(f"{s}{d}" for s in TASK_SCENES for d in (2, 5)), *SAR])
+    "hulls", *(f"{s}{d}" for s in TASK_SCENES for d in (2, 5)), *SAR,
+    "osl54", *TRACK])
 def test_checked_in_npz_equals_fresh_export(digits):
   fresh = export_model(fixture_xml(digits))
   with np.load(FIXTURE_NPZ[digits]) as z:

@@ -30,6 +30,8 @@ from myosuite_mjx_tpu_torch.envs.reorient_sar import (
     Geometries8Env, Geometries100Env, InDistributionEnv, OutOfDistributionEnv)
 from myosuite_mjx_tpu_torch.envs.walk import (LegReachEnv, TerrainWalkEnv,
                                               WalkEnv)
+from myosuite_mjx_tpu_torch.envs.run_track import RunTrackEnv
+from myosuite_mjx_tpu_torch.envs.track import TrackEnv
 
 BASE = {"model_path": "x.npz", "frame_skip": 10,
         "target_reach_range": {"THtip": ((0, 0, 0), (1, 1, 1)),
@@ -161,13 +163,29 @@ LEG_TASKS = {
     "ChaseTagP1": (ChaseTagEnv, 2000, 10, 22),
     "ChaseTagP2": (ChaseTagEnv, 2000, 10, 22),
 }
-ALL_TASKS = {**TASKS, **LEG_TASKS, **ARM_TASKS}
+# the OSL RunTrack tasks -> (class, horizon, frame_skip, nv); on osl54
+OSL_TASKS = {
+    "OslRunFixed": (RunTrackEnv, 1000, 5, 25),
+    "OslRunRandom": (RunTrackEnv, 60000, 5, 25),
+}
+# the MyoDM tasks -> (class, horizon, frame_skip, track29's nv); on
+# track29 and track17
+TRACK_TASKS = {
+    "CubesmallFixed": (TrackEnv, 50, 10, 35),
+    "CubesmallRandom": (TrackEnv, 50, 10, 35),
+    "CubesmallLift": (TrackEnv, 75, 10, 35),
+    "CubesmallInspect": (TrackEnv, 75, 10, 35),
+}
+ALL_TASKS = {**TASKS, **LEG_TASKS, **ARM_TASKS, **OSL_TASKS, **TRACK_TASKS}
 
 
 def _task(env_id: str) -> str:
   """The task of an id: hand23SarcObjHoldFixed-v0 -> ObjHoldFixed,
-  arm27RelocateP1-v0 -> RelocateP1."""
-  task = env_id[5 if env_id.startswith("arm") else 6:-3]
+  arm27RelocateP1-v0 -> RelocateP1, track29CubesmallLift-v0 ->
+  CubesmallLift."""
+  prefix = (5 if env_id.startswith(("arm", "osl"))
+            else 7 if env_id.startswith("track") else 6)
+  task = env_id[prefix:-3]
   return task[4:] if task.startswith(("Sarc", "Fati")) else task
 
 
@@ -190,7 +208,11 @@ def test_the_registered_ids():
   want |= {f"{b[:6]}{c}{b[6:]}" for b in legs for c in ("", "Sarc", "Fati")}
   want |= {f"{g}{t}-v0" for g in ("legs16", "legs80") for t in LEG_TASKS
            if t.startswith("Chase")}
-  assert set(ids) == want and len(ids) == 18 + 36 + 6 + 30 + 4 + 24 + 4 + 6
+  # the OSL RunTrack ids (MyoChallenge) and the MyoDM ids, no variants
+  want |= {f"osl54{t}-v0" for t in OSL_TASKS}
+  want |= {f"{s}{t}-v0" for s in ("track17", "track29") for t in TRACK_TASKS}
+  assert set(ids) == want and len(ids) == (18 + 36 + 6 + 30 + 4 + 24 + 4 + 6
+                                           + 2 + 8)
   assert not [i for i in ids if "Reaf" in i]
   assert registry.asset("hand23.npz").endswith(
       "myosuite_mjx_tpu_torch/assets/hand23.npz")
@@ -340,6 +362,73 @@ def test_every_arm_id_constructs_and_arm15_ids_step(env_id):
   if env_id.startswith("arm27"):
     assert env.model.nv == nv27
     return
+  g = torch.Generator().manual_seed(0)
+  st = env.reset(2, "cpu", g)
+  for _ in range(2):
+    st = env.autoreset_step(st, torch.full((2, env.action_dim), 0.5,
+                                           dtype=torch.float64), g)
+  assert st.obs.shape[0] == 2 and bool(torch.isfinite(st.obs).all())
+
+
+def test_the_osl_and_track_ids_take_the_references_kwargs():
+  ramp = ((0.0,) * 5 + (0.03, 0.0, 0.06, 0.0, 0.09, 0.0, 0.12, 0.0, 0.15,
+                        0.0, 0.18, 0.0, 0.21, 0.0, 0.24) + (0.0,) * 4)
+  _, fx = registry._REGISTRY["osl54OslRunFixed-v0"]
+  _, rd = registry._REGISTRY["osl54OslRunRandom-v0"]
+  for kw in (fx, rd):
+    assert (kw["reset_type"], kw["frame_skip"], kw["normalize_act"]) == (
+        "random", 5, True)
+    assert kw["model_path"].endswith("osl54.npz")
+    assert kw["init_pose_path"].endswith("osl54_gait_cycle.csv")
+  assert (fx["terrain"], fx["end_pos"], fx["start_pos"]) == ("flat", -15, 14)
+  assert fx["hills_difficulties"] == (0.0, 0.1, 0.0, 0.5, 0.0, 0.8, 0.0, 1.0)
+  assert fx["rough_difficulties"] == (0.0, 0.1, 0.0, 0.15, 0.0, 0.2, 0.0,
+                                      0.3)
+  assert fx["stairs_difficulties"] == (0.0, 0.05, 0.0, 0.1, 0.0, 0.2, 0.0,
+                                       0.3)
+  assert (rd["terrain"], rd["end_pos"], rd["start_pos"]) == ("random", -45,
+                                                              58)
+  assert len(rd["hills_difficulties"]) == 24
+  for k in ("hills_difficulties", "rough_difficulties",
+            "stairs_difficulties"):
+    np.testing.assert_allclose(rd[k], ramp, atol=1e-15)
+  for scene, dof in (("track29", 29), ("track17", 17)):
+    _, f = registry._REGISTRY[f"{scene}CubesmallFixed-v0"]
+    _, r = registry._REGISTRY[f"{scene}CubesmallRandom-v0"]
+    assert f["object_name"] == r["object_name"] == "cubesmall"
+    assert f["model_path"].endswith(f"{scene}.npz")
+    np.testing.assert_array_equal(f["reference"]["time"], (0.0, 4.0))
+    assert f["reference"]["robot"].shape == (1, dof)
+    np.testing.assert_array_equal(f["reference"]["object_init"],
+                                  (-0.2, -0.2, 0.1, 1.0, 0.0, 0.0, 0.0))
+    np.testing.assert_array_equal(f["reference"]["object"],
+                                  [(0.2, 0.2, 0.1, 1.0, 0.0, 0.0, 0.1)])
+    assert r["reference"]["robot_vel"].shape == (2, dof)
+    np.testing.assert_array_equal(r["reference"]["object"], [
+        (-0.2, -0.2, 0.1, 1.0, 0.0, 0.0, -1.0),
+        (0.2, 0.2, 0.1, 1.0, 0.0, 0.0, 1.0)])
+    np.testing.assert_array_equal(r["reference"]["object_init"],
+                                  (0.0, 0.0, 0.1, 1.0, 0.0, 0.0, 0.0))
+    for clip in ("Lift", "Inspect"):
+      _, kw = registry._REGISTRY[f"{scene}Cubesmall{clip}-v0"]
+      assert kw["reference"].endswith(f"{scene}_{clip.lower()}_clip.npz")
+      assert kw["normalize_act"] is True
+
+
+@pytest.mark.parametrize("env_id", [i for i in sorted(
+    registry._REGISTRY) if i.startswith(("osl54", "track17", "track29"))])
+def test_every_osl_and_track_id_constructs_and_steps(env_id):
+  env = envs.make(env_id, cache=False, dtype=torch.float64)
+  cls, horizon, frame_skip, nv = ALL_TASKS[_task(env_id)]
+  assert type(env) is cls and env.horizon == horizon
+  assert env.frame_skip == frame_skip
+  if env_id.startswith("osl54"):
+    assert env.model.nv == nv and env.action_dim == 54
+  elif env_id.startswith("track29"):
+    assert env.model.nv == nv and env.ref.robot_dim == 29
+    return
+  else:
+    assert env.ref.robot_dim == 17
   g = torch.Generator().manual_seed(0)
   st = env.reset(2, "cpu", g)
   for _ in range(2):

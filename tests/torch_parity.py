@@ -76,17 +76,26 @@ SCENE_NPZ = {(scene, digits): os.path.join(ASSETS, "{}{}_{}.npz".format(
 SAR = {"sar2": (2, 4), "sar5": (5, 4), "sar2_c3": (2, 3), "sar5_c3": (5, 3)}
 SAR_NPZ = {key: os.path.join(ASSETS, "hand{}_sar{}.npz".format(
     {2: 11, 5: 23}[d], "" if c == 4 else "_c3")) for key, (d, c) in SAR.items()}
+# the OSL RunTrack scene, and the tracking scenes by name (digits)
+OSL_NPZ = os.path.join(ASSETS, "osl54.npz")
+TRACK = {"track29": 5, "track17": 2}
+TRACK_NPZ = {name: os.path.join(ASSETS, f"{name}.npz") for name in TRACK}
 # every checked-in fixture: the hands by digit count, "free", "prims", the
 # object scenes as "<object><digits>" (e.g. "key2"), the leg scenes,
 # "plate", "hulls", the task scenes as "<scene><digits>" (e.g.
-# "relocate5") and the SAR hands
+# "relocate5"), the SAR hands, "osl54" and the tracking scenes
 FIXTURE_NPZ = {**NPZ, "free": FREE_NPZ, "prims": PRIMS_NPZ,
                **{f"{obj}{digits}": path
                   for (obj, digits), path in OBJECT_NPZ.items()},
                **LEGS_NPZ, "plate": PLATE_NPZ, "hulls": HULLS_NPZ,
                **{f"{scene}{digits}": path
                   for (scene, digits), path in SCENE_NPZ.items()},
-               **SAR_NPZ}
+               **SAR_NPZ, "osl54": OSL_NPZ, **TRACK_NPZ}
+# the OSL scene's gait table, and the tracking scenes' clips by (scene,
+# clip name): track29_lift_clip.npz ...
+OSL_GAIT_CSV = os.path.join(ASSETS, "osl54_gait_cycle.csv")
+TRACK_CLIP_NPZ = {(name, clip): os.path.join(ASSETS, f"{name}_{clip}_clip.npz")
+                  for name in TRACK for clip in ("lift", "inspect")}
 
 
 # the SAR tasks' geometry tables, exported from the JAX package's
@@ -118,6 +127,10 @@ def fixture_xml(key) -> str:
     return fixtures.plate_fixture_xml()
   if key == "hulls":
     return fixtures.hulls_fixture_xml()
+  if key == "osl54":
+    return fixtures.osl_fixture_xml()
+  if key in TRACK:
+    return fixtures.track_fixture_xml(TRACK[key])
   if isinstance(key, str):
     return getattr(fixtures, f"{key[:-1]}_fixture_xml")(int(key[-1]))
   return hand_fixture_xml(key)
@@ -301,9 +314,11 @@ class QueuedDraws:
     return torch.as_tensor(np.array(out), device=device)
 
 
-def compare_task_states(jenv, jst, penv, pst, what: str):
+def compare_task_states(jenv, jst, penv, pst, what: str,
+                        compare_aux: bool = True):
   """obs, reward, done, info and every reward key of a batched JAX state
-  against the port's."""
+  against the port's, and aux unless ``compare_aux`` is off (a task whose
+  aux holds a JAX key where the port keeps the key's draw)."""
   assert_close(pst.obs, jst.obs, what=f"{what} obs", **TASK_TOL)
   assert_close(pst.reward, jst.reward, what=f"{what} reward", **TASK_TOL)
   np.testing.assert_array_equal(to_np(pst.done), to_np(jst.done))
@@ -319,17 +334,20 @@ def compare_task_states(jenv, jst, penv, pst, what: str):
       assert_close(pr[k], jr[k], what=f"{what} {k}", **TASK_TOL)
   for k, v in jst.info.items():
     assert_close(pst.info[k], v, what=f"{what} info {k}", **TASK_TOL)
+  if not compare_aux:
+    return
   assert sorted(pst.aux) == sorted(jst.aux)
   for k, v in jst.aux.items():
     assert_close(pst.aux[k], v, what=f"{what} aux {k}", **TASK_TOL)
 
 
 def task_rollout(jenv, penv, queue_draws, batch: int, steps: int,
-                 seed: int = 0):
+                 seed: int = 0, compare_aux: bool = True):
   """Reset and ``steps`` autoreset steps of ``batch`` envs in both
-  packages with the same actions, comparing after each; JAX's draws go to
-  the port through ``queue_draws(keys)``, called with the env keys of each
-  reset before the port draws. Returns the count of episode ends."""
+  packages with the same actions, comparing after each
+  (``compare_task_states``); JAX's draws go to the port through
+  ``queue_draws(keys)``, called with the env keys of each reset before
+  the port draws. Returns (JAX state, port state, episode ends)."""
   assert penv.obs_keys == jenv.obs_keys
   assert penv.rwd_keys_wt == jenv.rwd_keys_wt
   actions = np.random.default_rng(seed).uniform(
@@ -338,14 +356,14 @@ def task_rollout(jenv, penv, queue_draws, batch: int, steps: int,
   jst = jax.jit(jax.vmap(jenv.reset))(keys)
   queue_draws(keys)
   pst = penv.reset(batch, "cpu")
-  compare_task_states(jenv, jst, penv, pst, "reset")
+  compare_task_states(jenv, jst, penv, pst, "reset", compare_aux)
   jstep = jax.jit(jax.vmap(jenv.autoreset_step))
   ends = 0
   for t in range(steps):
     queue_draws(reset_keys(jst.rng))
     jst = jstep(jst, jnp.asarray(actions[t]))
     pst = penv.autoreset_step(pst, torch.as_tensor(actions[t]))
-    compare_task_states(jenv, jst, penv, pst, f"step {t}")
+    compare_task_states(jenv, jst, penv, pst, f"step {t}", compare_aux)
     ends += int(to_np(pst.info["terminated"] | pst.info["truncated"]).sum())
   assert not any(penv.draws.values()), "draws left in the queue"
   return jst, pst, ends
@@ -356,9 +374,10 @@ def main(argv=None) -> None:
   ap.add_argument("--export", action="store_true",
                   help="compile every fixture (hand11, hand23, free10, "
                        "prims36, the hand-object scenes, the leg scenes, "
-                       "the plate, hulls, the baoding, SAR, relocate and "
-                       "bimanual scenes) and write its .npz file, and "
-                       "the SAR geometry tables")
+                       "the plate, hulls, the baoding, SAR, relocate, "
+                       "bimanual, OSL and tracking scenes) and write its "
+                       ".npz file, the SAR geometry tables, the OSL gait "
+                       "table and the tracking clips")
   ap.add_argument("--out-dir", default=os.path.normpath(ASSETS))
   args = ap.parse_args(argv)
   if not args.export:
@@ -370,6 +389,14 @@ def main(argv=None) -> None:
   path = os.path.join(args.out_dir, os.path.basename(SAR_GEOMETRIES_NPZ))
   np.savez_compressed(path, **sar_geometry_tables())
   print(path)
+  path = os.path.join(args.out_dir, os.path.basename(OSL_GAIT_CSV))
+  with open(path, "w") as f:
+    f.write(fixtures.osl_gait_csv())
+  print(path)
+  for (name, clip), dest in TRACK_CLIP_NPZ.items():
+    path = os.path.join(args.out_dir, os.path.basename(dest))
+    np.savez_compressed(path, **fixtures.track_clips(TRACK[name])[clip])
+    print(path)
 
 
 if __name__ == "__main__":

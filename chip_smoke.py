@@ -7,10 +7,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: a CUDA card is required (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles the SPD-solve kernel (csrc/spd_solve.cu) from source
-   and prints registers and spills of each padded size it is built for;
-   fails if any of them spills;
-3. kernel check: the kernel against its plain PyTorch version and against
+2. build: compiles the SPD-solve kernels (csrc/spd_solve.cu, the register
+   kernel, and csrc/spd_solve_general.cu, the general kernel) from source,
+   all started together, and prints registers and spills of each padded
+   size or type they are built for; fails if any of them spills;
+3. kernel check: the register kernel against its plain PyTorch version and
+   against
    float64 ``torch.linalg.solve`` on random SPD batches (every padded size
    and its ends, n = 1; every batch the later phases launch at, whole
    blocks, a ragged last block and a misaligned view) and on M, M + h D and
@@ -21,7 +23,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    captured in a CUDA graph, so that the host's launch cost drops out,
    at [4096, 23] and for one block alone, [8, 23]
    (``solve_ex`` cannot be captured: it fails with
-   cudaErrorStreamCaptureUnsupported);
+   cudaErrorStreamCaptureUnsupported). Then the general kernel (float64 at
+   any n, float32 with n > 64) against the plain version and a float64
+   ``torch.linalg.solve`` at ``GENERAL_F64_SIZES`` and
+   ``GENERAL_F32_SIZES``, both sides of its shared-memory limit, at
+   ``GENERAL_BATCHES`` and at phase 17's ``GENERAL_PATH_SHAPES``, with and
+   without the factor (the float64 solve at the batches of up to 16
+   systems, and at every batch for n <= 72); timed as the register
+   kernel at [4096, 23] float64 and [4096, 72] float32;
 4. main path: ``PoseEnv`` on the synthetic hand23 scene with the
    myoHandPoseFixed-v0 task, ``BatchedEnv`` of 4096 envs, ``init`` and 105
    control steps, so every env crosses horizon 100 once; checks finite
@@ -65,7 +74,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    card (float32) and on the CPU (float64 and float32) with the same draws
    (see ``FLOAT32_MARGIN`` for the bounds); then the nominal, overlay and
    obs_noise envs at B = 4096 in turns (nominal, overlay, obs_noise,
-   obs_noise, overlay, nominal), 6 control steps each with staggered
+   obs_noise, overlay, nominal), ``PHASE9_STEPS`` control steps each with
+   staggered
    episode clocks, physics-steps/s beside phase 4's; fails if an env that
    did not reset lost its overlay or one that did kept it.
 
@@ -101,11 +111,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    branch flips no more often than in float32 on the CPU, see
    ``PAIR_FLIP``); (b) the ``prims36`` fixture (free bodies of every
    primitive type, all 20 pair types) through ``Physics``: 16 envs for 50
-   substeps against the CPU, then B = 4096 for 120 substeps, failing unless
+   substeps against the CPU, then B = 4096 for ``PRIMS_WINDOW`` substeps,
+   failing unless
    the bodies rest and none is below the plane; (c) ``hand23KeyTurnRandom``,
    ``ObjHoldRandom``, ``PenTwirlRandom`` and ``DieReorientP1`` through
    ``envs.make``: 16 envs for 5 control steps against the CPU with the same
-   draws (phase 9's bounds), then B = 4096 for 10 control steps with every
+   draws (phase 9's bounds), then B = 4096 for ``MANIP_STEPS`` control
+   steps with every
    episode clock crossing its horizon, printing physics-steps/s, SPD
    launches, active contacts, the share of envs whose object touches the
    hand and the contacts the top-k cull dropped, failing on a non-finite
@@ -124,7 +136,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the ball's weight within 1%; (c) ``legs80StandRandom``, ``Walk``,
    ``RoughTerrainWalk``, ``StairTerrainWalk`` and ``ChaseTagP2`` through
    ``envs.make``: 16 envs for 5 control steps against the CPU with the
-   same draws; (d) each at B = 4096 for 8 control steps with every
+   same draws; (d) each at B = 4096 for ``LEG_STEPS`` control steps with every
    episode clock crossing its horizon, printing physics-steps/s, the
    ratio to phase 4, ms per control step, SPD launches, active contacts,
    the share of envs with a foot on the ground, the contacts the top-k
@@ -144,7 +156,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    rest; (c) ``hand23BaodingP2-v1``, ``arm27RelocateP2-v0``,
    ``arm27Bimanual-v0`` and ``hand23Reorient100-v0`` through ``envs.make``:
    16 envs for 5 control steps against the CPU (14c's rule); (d) each at
-   B = 4096 for 10 control steps with every episode clock crossing its
+   B = 4096 for ``HAND_ARM_STEPS`` control steps with every episode clock
+   crossing its
    horizon, printing physics-steps/s, the ratio to phase 4, ms per control
    step, SPD launches, active contacts and the contacts the cull dropped,
    failing on a non-finite output, a baoding ball that starts below
@@ -161,7 +174,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``osl54OslRunRandom-v0`` and ``track29CubesmallFixed``, ``Random`` and
    ``Lift-v0`` through ``envs.make``: 16 envs for 5 control steps against
    the CPU (14c's rule); (c) both OSL ids and the Random and Lift tracking
-   ids at B = 4096 for 8 control steps with every episode clock crossing
+   ids at B = 4096 for ``OSL_TRACK_STEPS`` control steps with every
+   episode clock crossing
    its horizon, printing physics-steps/s, the ratio to phase 4, ms per
    control step, SPD launches per control step, active contacts per env
    and step, the contacts the cull dropped, the OSL states over the
@@ -170,12 +184,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    OSL machine that never leaves early stance, or an env that did not
    autoreset.
 
-Every [B, n] at which phases 4-16 launch the kernel must be among those
-phase 3 checked. Phases 13-16's CPU runs at B = 16 are computed in one
-worker process (``cpu_references``), started after phase 2 and joined at
-phase 13, while the card runs phases 3-12.
+17. the general kernel's paths: (a) hand23's PoseFixed env in float64 on
+   the card, 16 envs for 5 control steps, against the CPU port in float64
+   (``F64_CARD_CPU_BOUND`` on the median env; contact-branch flips in at
+   most ``F64_FLIP_ENVS`` envs, phase 13's ill-lane rule); (b) the
+   ``chain72`` fixture (nv 72) through ``Physics``: float32 and float64 at
+   B = 16 for ``CHAIN_STEPS`` substeps against the CPU in float64
+   (``CHAIN_CPU_BOUND``), then float32 at B = 4096 for ``CHAIN_STEPS``
+   substeps, printing physics-steps/s and the general kernel's launches;
+   (c) inverse kinematics (``utils/ik.py``) of hand23's IFtip to 4,096
+   targets from feasible poses, in float32 and float64: success share,
+   mean steps, reach error and seconds; at B = 16 in float64 against the
+   CPU port; (d) one short call of each examine command (``examine_sim`` on
+   chain72, ``examine_env`` on track29CubesmallFixed-v0, ``examine_logs``
+   record then playback on the pose task, which
+   must reproduce the log exactly, ``examine_reference`` on
+   track29CubesmallLift-v0) through its ``main(argv)``.
 
-The line before the last is the kernels' JSON record; the last line is
+Every (dtype, B, n) at which phases 4-17 launch a kernel must be among
+those phase 3 checked. Phases 9's and 13-17's CPU runs at B = 16 are
+computed in one worker process (``cpu_references_conditions``, then
+``cpu_references``), started after phase 2 and joined at phases 9 and 13,
+while the card runs the phases before them.
+
+The line before the last is the kernels' JSON record (both kernels); the
+last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import concurrent.futures
@@ -291,8 +324,8 @@ OVERLAY_SPEC = dict(body_mass=(0.8, 1.2), body_pos=(-0.002, 0.002),
                     dof_damping=(0.5, 2.0), actuator_gain=(0.8, 1.2))
 PHASE9_ORDER = ("nominal", "overlay", "obs_noise", "obs_noise", "overlay",
                 "nominal")
-# (8 until PR 9; 6 keeps the whole command under 1,000 s with phase 15)
-PHASE9_STEPS = 6
+# (5 keeps the whole command under 1,000 s with phase 17)
+PHASE9_STEPS = 5
 FLOAT32_MARGIN = 20
 # phase 10: the CLI on this task; SAC at the proof recipe's width, run
 # straight for CLI_SAC_ITERS iterations and in two legs split at
@@ -333,13 +366,14 @@ PAIR_FLIP_SLACK = 0.02
 # substeps, card float32 against CPU float64 within free10's
 # FREE_CPU_BOUND (CPU float32 against float64 gave 5.5e-7 qpos and 1.4e-5
 # qvel, the card 5.5e-7 and 1.5e-5); then B_MAIN envs for PRIMS_WINDOW
-# substeps: by then every
-# body rests (CPU float32, 32 envs: each body's median speed at most 0.009
-# after 150 substeps, in m/s or rad/s) and none is below the plane
+# substeps (90, cut from 120 for the command's time): by then every body
+# rests (CPU float32, 32 envs: each body's median speed at most 0.009
+# after 150 substeps, in m/s or rad/s; the median env's fastest body 0.021
+# after 90, 0.013 after 100) and none is below the plane
 PRIMS36 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets",
                        "prims36.npz")
 PRIMS_STEPS = 50
-PRIMS_WINDOW = 120
+PRIMS_WINDOW = 90
 PRIMS_REST = 0.05
 # 13c: each task at B = 16 for 5 control steps on the card and the CPU
 # with the same draws (phase 9's bounds), then B_MAIN envs for MANIP_STEPS
@@ -351,8 +385,8 @@ MANIP_OBJECT = {"hand23KeyTurnRandom-v0": "key",
                 "hand23ObjHoldRandom-v0": "object",
                 "hand23PenTwirlRandom-v0": "Object",
                 "hand23DieReorientP1-v0": "die"}
-# (10 keeps the whole command under 1,000 s with phases 14-16)
-MANIP_STEPS = 10
+# (6 keeps the whole command under 1,000 s with phase 17)
+MANIP_STEPS = 6
 # 13d: the CLI's SAC at the proof recipe's width on the hold task
 MANIP_TRAIN_ENV = "hand23ObjHoldRandom-v0"
 MANIP_SAC_ITERS = 6
@@ -367,9 +401,11 @@ MANIP_SAC_ITERS = 6
 HFIELD_GRID = (100, 100)
 HFIELD_SIZE = (1.0, 1.0, 0.05)
 # 14b: the plate scene's force sensor at rest after PLATE_STEPS substeps
-# carries the plate's and the ball's weight within PLATE_BOUND
+# carries the plate's and the ball's weight within PLATE_BOUND (750, cut
+# from 1,500 for the command's time: the scene rests within a few hundred
+# substeps)
 PLATE = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "plate.npz")
-PLATE_STEPS = 1500
+PLATE_STEPS = 750
 PLATE_BOUND = 0.01
 PLATE_REST = 1e-2
 PLATE_WEIGHT = (0.5 + 0.2) * 9.81
@@ -388,8 +424,8 @@ PLATE_WEIGHT = (0.5 + 0.2) * 9.81
 LEG_TASKS = ("legs80StandRandom-v0", "legs80Walk-v0",
              "legs80RoughTerrainWalk-v0", "legs80StairTerrainWalk-v0",
              "legs80ChaseTagP2-v0")
-# (8 keeps the whole command under 1,000 s with phases 15 and 16)
-LEG_STEPS = 8
+# (5 keeps the whole command under 1,000 s with phase 17)
+LEG_STEPS = 5
 LEG_FLIP_SLACK = 0.125
 LEG_SENSORS = ("r_foot", "r_toes", "l_foot", "l_toes")
 # 14e: tools/profile_step.py on this task, once
@@ -408,8 +444,8 @@ HULLS_WINDOW = 120
 HULLS_REST = 0.05
 HAND_ARM_TASKS = ("hand23BaodingP2-v1", "arm27RelocateP2-v0",
                   "arm27Bimanual-v0", "hand23Reorient100-v0")
-# (10 keeps the whole command under 1,000 s with phase 16)
-HAND_ARM_STEPS = 10
+# (6 keeps the whole command under 1,000 s with phase 17)
+HAND_ARM_STEPS = 6
 PROFILE_ARM_ENV = "arm27RelocateP2-v0"
 # phase 16: the OSL RunTrack and MyoDM tracking tasks. 16a holds the OSL
 # machine on the card (float32) against the port's float64 on the CPU on
@@ -428,11 +464,58 @@ OSL_TRACK_TASKS = ("osl54OslRunFixed-v0", "osl54OslRunRandom-v0",
 # 0.57 m from its target)
 OSL_TRACK_RATE_TASKS = ("osl54OslRunFixed-v0", "osl54OslRunRandom-v0",
                         "track29CubesmallRandom-v0", "track29CubesmallLift-v0")
-OSL_TRACK_STEPS = 8
-# H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores, at the 700 W limit
+# (5 keeps the whole command under 1,000 s with phase 17)
+OSL_TRACK_STEPS = 5
+# the general kernel (csrc/spd_solve_general.cu): float64 at any n and
+# float32 with n > 64. Phase 3 holds it at these sizes, on both sides of
+# its shared-memory limit (n 169 / 170 in float64, 240 / 241 in float32 on
+# an H100) and at every size phase 17 launches (23, 72), at one system,
+# phase 17's B = 16 and a ragged batch; and at phase 17's main batch for
+# the sizes it launches there
+GENERAL_F64_SIZES = (1, 7, 23, 35, 50, 64, 65, 72, 128, 169, 170, 200)
+GENERAL_F32_SIZES = (65, 72, 128, 239, 240, 241, 256)
+GENERAL_BATCHES = (1, 16, 4097)
+GENERAL_PATH_SHAPES = ((torch.float64, B_MAIN, 23),
+                       (torch.float32, B_MAIN, 72))
+# above n = 72 the float64 reference solve of a large batch takes seconds:
+# there the kernel is held against the plain version only
+GENERAL_REF_N = 72
+# relative to the largest |x|: a few ulps of each type
+GENERAL_BOUND = {torch.float64: 1e-12, torch.float32: RANDOM_BOUND}
+# phase 17: (a) the card's float64 against the CPU's, 5 control steps of
+# 16 envs; other operation order only, so far below phase 5's float32
+# bounds; an env whose contact takes another branch is a flip (phase 13's
+# ill-lane rule), allowed in at most F64_FLIP_ENVS envs
+F64_STEPS = 5
+F64_CARD_CPU_BOUND = {"qpos": 1e-8, "qvel": 1e-6, "act": 1e-9}
+F64_FLIP_ENVS = 2
+# (b) chain72: B = 16 against the CPU in float64 after CHAIN_STEPS
+# substeps; float32 at phase 12's bounds, float64 at 1e-8 / 1e-6
+CHAIN72 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets",
+                       "chain72.npz")
+CHAIN_STEPS = 20
+CHAIN_CPU_BOUND = {torch.float32: FREE_CPU_BOUND,
+                   torch.float64: {"qpos": 1e-8, "qvel": 1e-6}}
+# (c) IK to a micrometre in at most 100 iterations, in both types; the
+# card's float64 IK at B = 16 against the CPU's: the same success and steps,
+# and qpos within IK_QPOS_BOUND (IFtip's chain has seven joints for three
+# coordinates: the iteration amplifies rounding along its null space, far
+# above float64's ulp but far below this bound)
+IK_SITE = "IFtip"
+IK_TOL = 1e-6
+IK_MAX_STEPS = 100
+IK_QPOS_BOUND = 1e-6
+# (d) the examine commands' tasks: examine_logs records and replays 5
+# control steps of the pose task; examine_env rolls out to each episode's
+# first done, which track29's Fixed id reaches at its first step
+EXAMINE_ENV = "hand23PoseFixed-v0"
+EXAMINE_ROLLOUT_ENV = "track29CubesmallFixed-v0"
+EXAMINE_TRACK = "track29CubesmallLift-v0"
+# H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s, and FLOP/s
+# outside the tensor cores in float32 and in float64, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12
 
 
 def _say(*args):
@@ -468,11 +551,44 @@ def _ptxas_report(log: str) -> dict:
   return out
 
 
+def _ptxas_general(log: str) -> dict:
+  """Registers and spill bytes per element type of the general kernel."""
+  out, kind = {}, None
+  for ln in log.splitlines():
+    m = re.search(r"spd_solve_general_kernelI([fd])E", ln)
+    if "Compiling entry function" in ln and m:
+      kind = {"f": "float32", "d": "float64"}[m.group(1)]
+      out[kind] = {}
+    elif kind is not None:
+      if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        ln):
+        out[kind]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+      if m := re.search(r"Used (\d+) registers", ln):
+        out[kind]["registers"] = int(m.group(1))
+  return out
+
+
 def phase_build():
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
-  path, seconds, log = cuda_linalg.build()
-  _say(f"build: {seconds:.2f} s -> {os.path.relpath(path, ROOT)}"
-       f"{'' if seconds else ' (already built)'}")
+  # one nvcc per source, started together
+  with concurrent.futures.ThreadPoolExecutor(2) as ex:
+    builds = [ex.submit(cuda_linalg.build, source=src)
+              for src in (cuda_linalg.SOURCE, cuda_linalg.GENERAL_SOURCE)]
+    (path, seconds, log), (gpath, gseconds, glog) = [b.result()
+                                                     for b in builds]
+  for p, sec in ((path, seconds), (gpath, gseconds)):
+    _say(f"build: {sec:.2f} s -> {os.path.relpath(p, ROOT)}"
+         f"{'' if sec else ' (already built)'}")
+  general = _ptxas_general(glog)
+  if sorted(general) != ["float32", "float64"]:
+    raise AssertionError(f"ptxas reported general kernel types "
+                         f"{sorted(general)}")
+  for kind, rep in sorted(general.items()):
+    _say(f"build: general kernel, {kind}: {rep.get('registers')} registers, "
+         f"{rep.get('spill_bytes')} bytes spilled")
+    if rep.get("spill_bytes") != 0:
+      raise AssertionError(f"the general kernel spills in {kind} (or no "
+                           f"report)")
   report = _ptxas_report(log)
   if sorted(report) != list(PADDED_SIZES):
     raise AssertionError(f"ptxas reported sizes {sorted(report)}, expected "
@@ -528,11 +644,12 @@ def _graph_ms(fn, reps: int = 50, replays: int = 10) -> float:
 
 def _bound_ms(a: torch.Tensor, b: torch.Tensor, factor: bool = False):
   """Least time for the solve: A, b read and x (and L) written once over HBM
-  rate, against 2n^3/3 + 2n^2 flops per system over the float32 peak."""
+  rate, against 2n^3/3 + 2n^2 flops per system over the peak of a's type."""
   batch, n = b.shape
   nbytes = (2 * a.numel() if factor else a.numel()) + 2 * b.numel()
   t_bytes = nbytes * a.element_size() / HBM_BYTES_PER_S
-  t_ops = batch * (2 * n ** 3 / 3 + 2 * n ** 2) / FP32_FLOPS
+  peak = FP64_FLOPS if a.dtype == torch.float64 else FP32_FLOPS
+  t_ops = batch * (2 * n ** 3 / 3 + 2 * n ** 2) / peak
   return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -681,6 +798,129 @@ def phase_kernel_check() -> dict:
        f"({bound_factor_ms:.6f} ms with the factor); kernel at "
        f"{bound_ms / out['graph_ms']:.3f} of it, with the factor at "
        f"{bound_factor_ms / float(np.mean(graph['kernel+factor'])):.3f}")
+  return out
+
+
+def _general_errors(a64, b64, dtype, with_ref: bool):
+  """General kernel vs plain (x, factor) and, ``with_ref``, vs a float64
+  solve (else 0), each relative to the largest entry, on ``dtype`` copies
+  of a float64 system; also the largest absolute difference of x from
+  plain."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
+  a, b = a64.to(dtype), b64.to(dtype)
+  x, L = cuda_linalg.spd_solve_cuda(a, b, factor=True)
+  x_only = cuda_linalg.spd_solve_cuda(a, b)
+  xp, Lp = linalg.spd_solve_plain(a, b, factor=True)
+  ref_err = 0.0
+  if with_ref:
+    ref = torch.linalg.solve(a64, b64)
+    ref_err = float((x.double() - ref).abs().max()) / float(ref.abs().max())
+  torch.cuda.synchronize()
+  if not torch.equal(x, x_only):
+    raise AssertionError("the general kernel's x differs with the factor")
+  diff = float((x - xp).abs().max())
+  return (diff / float(xp.abs().max()),
+          float((L - Lp).abs().max()) / float(Lp.abs().max()), ref_err, diff)
+
+
+def phase_general_check() -> dict:
+  """Phase 3, second half: the general kernel at every size and batch of
+  GENERAL_*, then its times at [4096, 23] float64 and [4096, 72] float32."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
+  g = torch.Generator(device=DEVICE).manual_seed(1)
+  limits = {dt: cuda_linalg.general_max_shared_n(dt)
+            for dt in (torch.float64, torch.float32)}
+  _say(f"general kernel: systems staged in shared memory up to n = "
+       f"{limits[torch.float64]} (float64), {limits[torch.float32]} "
+       f"(float32); in place in L above")
+  n0 = cuda_linalg.spd_solve_general_cuda.launches
+  r0 = cuda_linalg.spd_solve_cuda.launches
+  worst_abs = {}
+  cases = {}
+  for dtype, sizes in ((torch.float64, GENERAL_F64_SIZES),
+                       (torch.float32, GENERAL_F32_SIZES)):
+    for n in sizes:
+      cases[dtype, n] = list(GENERAL_BATCHES)
+  for dtype, batch, n in GENERAL_PATH_SHAPES:
+    cases[dtype, n].append(batch)
+  for (dtype, n), batches in cases.items():
+    bound = GENERAL_BOUND[dtype]
+    worst = [0.0, 0.0, 0.0]
+    t0 = time.perf_counter()
+    for batch in batches:
+      errs = _general_errors(*_random_spd(n, batch, g), dtype,
+                             batch <= 16 or n <= GENERAL_REF_N)
+      worst = [max(w, e) for w, e in zip(worst, errs)]
+      # against the float64 solve a float32 result keeps float32's
+      # rounding times the condition (random batches: eigenvalues >= 1)
+      if max(errs[:2]) > bound or errs[2] > max(bound, RANDOM_BOUND):
+        raise AssertionError(f"general kernel disagrees at {dtype} n={n} "
+                             f"B={batch}: {errs}")
+      if batch == B_MAIN:
+        worst_abs[dtype, n] = errs[3]
+    where = "shared" if n <= limits[dtype] else "in place"
+    _say(f"general kernel {str(dtype)[6:]} n={n} ({where}) B={batches}: "
+         f"rel err vs plain {worst[0]:.3e}, factor {worst[1]:.3e}, vs "
+         f"float64 solve {worst[2]:.3e} (bound {bound:g}) ok, "
+         f"{time.perf_counter() - t0:.1f} s")
+  checked = cuda_linalg.spd_solve_general_cuda.launches - n0
+  expected = 2 * sum(len(b) for b in cases.values())
+  if checked != expected or cuda_linalg.spd_solve_cuda.launches != r0:
+    raise AssertionError(f"general kernel launches {checked} (expected "
+                         f"{expected}); register kernel launches "
+                         f"{cuda_linalg.spd_solve_cuda.launches - r0} "
+                         f"(expected 0)")
+
+  out = {}
+  for dtype, n in ((torch.float64, 23), (torch.float32, 72)):
+    a64, b64 = _random_spd(n, B_MAIN, g)
+    a, b = a64.to(dtype), b64.to(dtype)
+    fns = {"plain": lambda: linalg.spd_solve_plain(a, b),
+           "kernel": lambda: cuda_linalg.spd_solve_general_cuda(a, b),
+           "library": lambda: torch.linalg.solve_ex(a, b),
+           "kernel+factor": lambda: cuda_linalg.spd_solve_general_cuda(
+               a, b, True)}
+    times = {"plain": [], "kernel": [], "library": []}
+    for which in ("plain", "kernel", "library", "library", "kernel",
+                  "plain"):
+      times[which].append(_time_ms(fns[which],
+                                   reps=10 if which == "plain" else 50))
+    graph = {"kernel": [], "kernel+factor": []}
+    for which in ("kernel", "kernel+factor", "kernel+factor", "kernel"):
+      graph[which].append(_graph_ms(fns[which]))
+    bound_ms, bound_by = _bound_ms(a, b)
+    bound_factor_ms, _ = _bound_ms(a, b, factor=True)
+    name = f"{str(dtype)[6:]} [{B_MAIN}, {n}]"
+    _say(f"spd_solve_general {name}, eager (CUDA events): kernel "
+         f"{times['kernel']} ms, plain {times['plain']} ms, "
+         f"torch.linalg.solve_ex {times['library']} ms")
+    _say(f"spd_solve_general {name}, CUDA graph of 50 launches: kernel "
+         f"{graph['kernel']} ms, with factor {graph['kernel+factor']} ms; "
+         f"bound {bound_ms:.6f} ms by {bound_by} ({bound_factor_ms:.6f} ms "
+         f"with the factor); kernel at "
+         f"{bound_ms / float(np.mean(graph['kernel'])):.3f} of it")
+    out[str(dtype)[6:]] = {
+        "ms": float(np.mean(times["kernel"])),
+        "plain_ms": float(np.mean(times["plain"])),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": float(np.mean(times["library"])),
+        "graph_ms": float(np.mean(graph["kernel"])),
+        "max_abs_err": worst_abs[dtype, n]}
+  # the line's numbers: the main shape of the general kernel's own path,
+  # [4096, 23] float64 (phase 17's env and IK); [4096, 72] float32 beside
+  main = dict(out["float64"])
+  main["float32_n72"] = out["float32"]
+  return main
+
+
+def phase_kernels() -> dict:
+  """Phase 3: the register kernel, then the general kernel."""
+  out = {}
+  for name, fn in (("spd_solve", phase_kernel_check),
+                   ("spd_solve_general", phase_general_check)):
+    t0 = time.perf_counter()
+    out[name] = fn()
+    _say(f"phase 3, {name}: {time.perf_counter() - t0:.1f} s")
   return out
 
 
@@ -1264,33 +1504,49 @@ def _condition_env(name: str, dtype=torch.float32):
              **CONDITIONS.get(name, {}))
 
 
-def phase_conditions(phase4_rate: float) -> dict:
-  """Phase 9; ``phase4_rate`` is phase 4's physics-steps/s in this call."""
+def _condition_b16(name: str, device, dtype) -> dict:
+  """16 envs of a phase 9 condition, 5 autoreset steps of seeded actions,
+  every draw from one CPU generator (the same draws on the card): the
+  state fields of CARD_CPU_BOUND and obs, as float64 on the host."""
+  actions = np.random.default_rng(0).uniform(0.0, 1.0, (5, 16, 39))
+  env = _condition_env(name, dtype)
+  g = torch.Generator().manual_seed(0)
+  st = env.reset(16, device, g)
+  for a in actions:
+    st = env.autoreset_step(
+        st, torch.as_tensor(a, dtype=dtype, device=device), g)
+  out = {f: getattr(st.data, f).double().cpu() for f in CARD_CPU_BOUND}
+  out["obs"] = st.obs.double().cpu()
+  return out
+
+
+def cpu_references_conditions() -> dict:
+  """Phase 9's CPU side (float64 and float32 of each condition); ``main``
+  computes it in the worker process, ahead of ``cpu_references``."""
+  torch.set_num_threads(2)
+  return {(name, dtype): _condition_b16(name, "cpu", dtype)
+          for name in CONDITIONS for dtype in (torch.float64, torch.float32)}
+
+
+def phase_conditions(phase4_rate: float, cpu_refs=None) -> dict:
+  """Phase 9; ``phase4_rate`` is phase 4's physics-steps/s in this call,
+  ``cpu_refs`` a future of ``cpu_references_conditions()`` (computed here
+  without it)."""
   from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
   torch.cuda.synchronize()
   cuda_linalg.spd_solve_cuda.launches = 0
-  B = 16
-  actions = np.random.default_rng(0).uniform(0.0, 1.0, (5, B, 39))
+  t0 = time.perf_counter()
+  refs = (cpu_refs.result() if cpu_refs is not None
+          else cpu_references_conditions())
+  _say(f"phase 9: waited {time.perf_counter() - t0:.1f} s for the CPU "
+       f"references")
   for name in CONDITIONS:
-    out = {}
-    for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float64),
-                          ("cpu", torch.float32)):
-      env = _condition_env(name, dtype)
-      # one CPU generator for all: the same draws, copied to the card
-      g = torch.Generator().manual_seed(0)
-      st = env.reset(B, device, g)
-      for a in actions:
-        st = env.autoreset_step(
-            st, torch.as_tensor(a, dtype=dtype, device=device), g)
-      out[device, dtype] = st
-    card, ref = out[DEVICE, torch.float32], out["cpu", torch.float64]
-    cpu32 = out["cpu", torch.float32]
+    card = _condition_b16(name, DEVICE, torch.float32)
+    ref, cpu32 = refs[name, torch.float64], refs[name, torch.float32]
     for f, bound in CARD_CPU_BOUND.items():
-      err = (getattr(card.data, f).double().cpu()
-             - getattr(ref.data, f)).abs().amax(-1)
-      err32 = float((getattr(cpu32.data, f).double()
-                     - getattr(ref.data, f)).abs().max())
+      err = (card[f] - ref[f]).abs().amax(-1)
+      err32 = float((cpu32[f] - ref[f]).abs().max())
       worst_bound = max(bound, FLOAT32_MARGIN * err32)
       worst, median = float(err.max()), float(err.median())
       ok = worst <= worst_bound and median <= bound
@@ -1300,7 +1556,7 @@ def phase_conditions(phase4_rate: float) -> dict:
            f"{median:.3e} (bound {bound:g}) {'ok' if ok else 'FAIL'}")
       if not ok:
         raise AssertionError(f"{name}: card and CPU disagree on {f}")
-    obs_err = float((card.obs.double().cpu() - ref.obs).abs().max())
+    obs_err = float((card["obs"] - ref["obs"]).abs().max())
     _say(f"conditions {name}: obs max abs err {obs_err:.3e}")
 
   rates: dict = {}
@@ -1787,12 +2043,15 @@ def _hold_b16(task_id: str, refs: dict | None, label: str) -> None:
 
 
 def cpu_references() -> dict:
-  """Phases 13-16's CPU side (13b's and 15b's float64 runs, 13c's, 14c's,
-  15c's and 16b's float64 and float32 runs). ``main`` computes it in a worker
-  process while the card runs the earlier phases."""
+  """Phases 13-17's CPU side (13b's and 15b's float64 runs, 13c's, 14c's,
+  15c's and 16b's float64 and float32 runs, 17a's and 17b's float64 runs).
+  ``main`` computes it in a worker process while the card runs the
+  earlier phases."""
   torch.set_num_threads(2)
   out = {"prims": _prims_b16("cpu", torch.float64),
-         "hulls": _hulls_b16("cpu", torch.float64)}
+         "hulls": _hulls_b16("cpu", torch.float64),
+         "pose_f64": _pose_b16("cpu", torch.float64),
+         "chain72": _chain_b16("cpu", torch.float64)}
   for task_id in MANIP_TASKS + LEG_TASKS + HAND_ARM_TASKS + OSL_TRACK_TASKS:
     for dtype in (torch.float64, torch.float32):
       out[task_id, dtype] = _task_b16(task_id, "cpu", dtype)
@@ -2719,17 +2978,237 @@ def phase_osl_track(phase4_rate: float, cpu_refs=None) -> dict:
   return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the general kernel's paths (float64, n > 64), IK and the
+# examine commands
+# ---------------------------------------------------------------------------
+
+
+def _pose_b16(device, dtype) -> dict:
+  """hand23 PoseFixed, 16 envs, F64_STEPS control steps of seeded actions."""
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+  actions = np.random.default_rng(0).uniform(0.0, 1.0, (F64_STEPS, 16, 39))
+  benv = BatchedEnv(PoseEnv(HAND23, dtype=dtype, **HAND_POSE_FIXED), 16,
+                    device)
+  st = benv.init()
+  for a in actions:
+    st = benv.step(st, torch.as_tensor(a, dtype=dtype, device=device))
+  return {f: getattr(st.data, f).double().cpu().numpy()
+          for f in F64_CARD_CPU_BOUND}
+
+
+def phase_f64_env(refs: dict | None = None) -> None:
+  """17a: MyoEnv in float64 on the card against the CPU port; ``refs`` is
+  ``cpu_references()`` (computed here without it)."""
+  card = _pose_b16(DEVICE, torch.float64)
+  ref = refs["pose_f64"] if refs else _pose_b16("cpu", torch.float64)
+  for f, bound in F64_CARD_CPU_BOUND.items():
+    err = np.abs(card[f] - ref[f]).max(-1)
+    median, flips = float(np.median(err)), int((err > bound).sum())
+    ok = (median <= bound and flips <= F64_FLIP_ENVS
+          and np.isfinite(card[f]).all())
+    _say(f"17a hand23 PoseFixed float64 B=16, {F64_STEPS} control steps, "
+         f"card vs cpu, {f}: median env {median:.3e} (bound {bound:g}); "
+         f"envs past it {flips} (at most {F64_FLIP_ENVS}); worst env "
+         f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"17a: float64 card and CPU disagree on {f}")
+
+
+def _chain_start(phys, batch: int):
+  """``batch`` chain72 envs at qpos0 with small seeded joint velocities."""
+  qvel = np.random.default_rng(0).normal(scale=0.05,
+                                         size=(batch, phys.model.nv))
+  d = phys.make_data(batch)
+  return d.replace(qvel=torch.as_tensor(qvel, dtype=phys.dtype,
+                                        device=phys.device))
+
+
+def _chain_b16(device, dtype) -> dict:
+  """chain72's 16 envs after CHAIN_STEPS substeps: qpos and qvel as
+  float64 on the host."""
+  from myosuite_mjx_tpu_torch.engine import api
+  phys = api.load(CHAIN72, dtype, device)
+  d = phys.step_n(CHAIN_STEPS)(_chain_start(phys, 16))
+  return {f: getattr(d, f).double().cpu() for f in ("qpos", "qvel")}
+
+
+def phase_chain72(refs: dict | None = None) -> dict:
+  """17b: chain72 through Physics, B = 16 against the CPU in both types,
+  then float32 at B_MAIN; ``refs`` is ``cpu_references()`` (computed here
+  without it)."""
+  from myosuite_mjx_tpu_torch.engine import api
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  ref = refs["chain72"] if refs else _chain_b16("cpu", torch.float64)
+  for dtype, bounds in CHAIN_CPU_BOUND.items():
+    card_d = _chain_b16(DEVICE, dtype)
+    for f, bound in bounds.items():
+      card = card_d[f]
+      err = float((card - ref[f]).abs().max())
+      ok = err <= bound and bool(torch.isfinite(card).all())
+      _say(f"17b chain72 B=16, {CHAIN_STEPS} substeps, card "
+           f"{str(dtype)[6:]} vs cpu float64, {f}: max abs err {err:.3e} "
+           f"(bound {bound:g}; peak |{f}| {float(ref[f].abs().max()):.3f}) "
+           f"{'ok' if ok else 'FAIL'}")
+      if not ok:
+        raise AssertionError(f"chain72: card {dtype} and CPU disagree on "
+                             f"{f}")
+
+  phys = api.load(CHAIN72, torch.float32, DEVICE)
+  advance = phys.step_n(CHAIN_STEPS)
+  d = phys.step_n(2)(_chain_start(phys, B_MAIN))
+  torch.cuda.synchronize()
+  n0 = cuda_linalg.spd_solve_general_cuda.launches
+  t0 = time.perf_counter()
+  d = advance(d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = cuda_linalg.spd_solve_general_cuda.launches - n0
+  rate = CHAIN_STEPS * B_MAIN / seconds
+  active = (d.contact.dist < 0).sum(-1).float()
+  touching = float((active > 0).float().mean())
+  _say(f"17b chain72 float32 B={B_MAIN}: {CHAIN_STEPS} substeps in "
+       f"{seconds:.3f} s: {rate:.1f} physics-steps/s; general kernel "
+       f"launches {launches} ({launches / CHAIN_STEPS:.1f} per substep); "
+       f"active contacts per env {float(active.mean()):.2f} (envs touching "
+       f"{touching:.4f}), dropped {int(d.ncon_dropped.sum())}, ne_active "
+       f"mean {float(d.ne_active.float().mean()):.2f}")
+  for name, x in (("qpos", d.qpos), ("qvel", d.qvel)):
+    if not bool(torch.isfinite(x).all()):
+      raise AssertionError(f"chain72: non-finite {name} at B={B_MAIN}")
+  if launches <= 0 or touching < 0.5:
+    raise AssertionError("chain72: no general kernel launch, or the chain "
+                         "left the floor in most envs")
+  return {"chain72_physics_steps_per_s": rate}
+
+
+def _ik_case(device, dtype, batch: int, seed: int = 0):
+  """IK of hand23's IK_SITE to the site's positions at ``batch`` seeded
+  feasible poses, on ``device``: (result, targets, reached, seconds)."""
+  from myosuite_mjx_tpu_torch.engine import model as model_mod
+  from myosuite_mjx_tpu_torch.engine import smooth
+  from myosuite_mjx_tpu_torch.utils import ik
+  m = model_mod.load_npz(HAND23)
+  dm = model_mod.DeviceModel(m, dtype, device)
+  lo, hi = m.jnt_range[:, 0], m.jnt_range[:, 1]
+  goals = lo + np.random.default_rng(seed).uniform(
+      0.25, 0.75, (batch, m.nq)) * (hi - lo)
+  sid = m.name2id("site", IK_SITE)
+  site = lambda q: smooth.kinematics(dm, q)["site_xpos"][:, sid]
+  target = site(torch.as_tensor(goals, dtype=dtype, device=device))
+  if device != "cpu":
+    torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  res = ik.qpos_from_site_pose(dm, IK_SITE, target_pos=target, tol=IK_TOL,
+                               max_steps=IK_MAX_STEPS)
+  if device != "cpu":
+    torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  reached = torch.linalg.vector_norm(site(res.qpos) - target, dim=-1)
+  return res, reached, seconds
+
+
+def phase_ik() -> None:
+  """17c: IK at B_MAIN in float32 and float64; float64 at B = 16 against
+  the CPU."""
+  for dtype in (torch.float32, torch.float64):
+    res, reached, seconds = _ik_case(DEVICE, dtype, B_MAIN)
+    share = float(res.success.double().mean())
+    _say(f"17c IK {IK_SITE} {str(dtype)[6:]} B={B_MAIN}: success "
+         f"{share:.4f} (tol {IK_TOL:g}), steps mean "
+         f"{float(res.steps.double().mean()):.2f} max {int(res.steps.max())}"
+         f", reach error median {float(reached.median()):.3e} max "
+         f"{float(reached.max()):.3e} m, {seconds:.3f} s")
+    if not (bool(torch.isfinite(res.qpos).all()) and share > 0.9):
+      raise AssertionError(f"IK {dtype}: non-finite qpos or success "
+                           f"{share}")
+  card, _, _ = _ik_case(DEVICE, torch.float64, 16, seed=1)
+  cpu, _, _ = _ik_case("cpu", torch.float64, 16, seed=1)
+  err = float((card.qpos.cpu() - cpu.qpos).abs().max())
+  same = (torch.equal(card.success.cpu(), cpu.success)
+          and torch.equal(card.steps.cpu(), cpu.steps))
+  ok = same and err <= IK_QPOS_BOUND
+  _say(f"17c IK float64 B=16 card vs cpu: qpos max abs err {err:.3e} "
+       f"(bound {IK_QPOS_BOUND:g}), success and steps equal {same} "
+       f"{'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("IK: float64 card and CPU disagree")
+
+
+def phase_examine() -> None:
+  """17d: one short call of each examine command through ``main``."""
+  from myosuite_mjx_tpu_torch.logger.trace import Trace
+  from myosuite_mjx_tpu_torch.utils import (examine_env, examine_logs,
+                                            examine_reference, examine_sim)
+  with tempfile.TemporaryDirectory() as tmp:
+    sim = examine_sim.main(["--model_path", CHAIN72, "--horizon", "10",
+                            "--device", DEVICE])
+    if not np.isfinite(sim["qpos"]).all():
+      raise AssertionError("examine_sim: non-finite qpos")
+    out = examine_env.main(["-e", EXAMINE_ROLLOUT_ENV, "-n", "16", "-o", tmp,
+                            "-f", "pickle", "--device", DEVICE])
+    trace = Trace.load(out)
+    if len(trace.trace) != 16 or not all(
+        np.isfinite(g["observations"]).all() for g in trace.trace.values()):
+      raise AssertionError("examine_env: missing or non-finite trials")
+    rec = examine_logs.main(["-e", EXAMINE_ENV, "-m", "record", "--horizon",
+                             "5", "--num_repeat", "16", "-o", tmp, "-f",
+                             "pickle", "--device", DEVICE])
+    res = examine_logs.main(["-e", EXAMINE_ENV, "-m", "playback", "-p", rec,
+                             "--device", DEVICE])
+    worst = max(max(r["obs_err"], r["qpos_drift"]) for r in res.values())
+    _say(f"17d examine_logs record -> playback on the card: {len(res)} "
+         f"trials, largest difference from the log {worst:.3e} "
+         f"{'ok' if worst == 0.0 else 'FAIL'}")
+    if worst != 0.0:
+      raise AssertionError("examine_logs: playback does not reproduce the "
+                           "log exactly")
+    frames = examine_reference.main(["-e", EXAMINE_TRACK, "--device",
+                                     DEVICE])
+    if not np.isfinite(frames).all():
+      raise AssertionError("examine_reference: non-finite frames")
+
+
+def phase_general_paths(cpu_refs=None) -> dict:
+  """Phase 17; both kernels' counts are set to 0 here and read at the
+  end, each part's general-kernel launches apart. ``cpu_refs`` is a
+  future of ``cpu_references()``."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  refs = cpu_refs.result() if cpu_refs is not None else None
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  cuda_linalg.spd_solve_general_cuda.launches = 0
+  parts, out = {}, {}
+  for part, fn, args in (("a", phase_f64_env, (refs,)),
+                         ("b", phase_chain72, (refs,)),
+                         ("c", phase_ik, ()), ("d", phase_examine, ())):
+    n0, t0 = cuda_linalg.spd_solve_general_cuda.launches, time.perf_counter()
+    res = fn(*args)
+    torch.cuda.synchronize()
+    parts[part] = cuda_linalg.spd_solve_general_cuda.launches - n0
+    out.update(res or {})
+    _say(f"phase 17{part}: {time.perf_counter() - t0:.1f} s, general kernel "
+         f"launches {parts[part]}")
+    if parts[part] <= 0:
+      raise AssertionError(f"phase 17{part} never launched the general "
+                           f"kernel")
+  return {"launches": cuda_linalg.spd_solve_general_cuda.launches,
+          "register_launches": cuda_linalg.spd_solve_cuda.launches,
+          "parts": parts, **out}
+
+
 @contextlib.contextmanager
 def _launch_shapes(shapes: set):
-  """Record the [B, n] of every ``linalg.spd_solve`` call on the card made
-  inside (the engine calls it through the module; the launch count stays
-  the kernel wrapper's own)."""
+  """Record the (dtype, B, n) of every ``linalg.spd_solve`` call on the card
+  made inside (the engine calls it through the module; the launch counts
+  stay the kernel wrappers' own)."""
   from myosuite_mjx_tpu_torch.ops import linalg
   solve = linalg.spd_solve
 
   def recording(a, b, factor=False):
     if b.is_cuda:
-      shapes.add(tuple(b.shape))
+      shapes.add((str(b.dtype)[6:], *b.shape))
     return solve(a, b, factor)
 
   linalg.spd_solve = recording
@@ -2747,19 +3226,34 @@ def _timed_phase(number: int, fn, *args):
 
 
 def main() -> int:
+  t0 = time.perf_counter()
   smi = phase_device()
   _timed_phase(2, phase_build)
-  # phase 13's CPU references, in one worker while the card works
+  # phases 9's and 13-17's CPU references, in one worker while the card
+  # works
   pool = concurrent.futures.ProcessPoolExecutor(
       1, mp_context=multiprocessing.get_context("spawn"))
   with pool:
+    cond_refs = pool.submit(cpu_references_conditions)
     cpu_refs = pool.submit(cpu_references)
-    return _main_phases(smi, cpu_refs)
+    return _main_phases(smi, cond_refs, cpu_refs, t0)
 
 
-def _main_phases(smi: str, cpu_refs) -> int:
-  kernel = _timed_phase(3, phase_kernel_check)
+def _checked_shapes() -> set:
+  """Every (dtype, B, n) phase 3 held against the plain version."""
+  return ({("float32", b, n) for b in BATCHES for n in SIZES}
+          | {("float64", b, n) for b in GENERAL_BATCHES
+             for n in GENERAL_F64_SIZES}
+          | {("float32", b, n) for b in GENERAL_BATCHES
+             for n in GENERAL_F32_SIZES}
+          | {(str(dt)[6:], b, n) for dt, b, n in GENERAL_PATH_SHAPES})
+
+
+def _main_phases(smi: str, cond_refs, cpu_refs, t_start: float) -> int:
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  kernels = _timed_phase(3, phase_kernels)
   shapes: set = set()
+  cuda_linalg.spd_solve_general_cuda.launches = 0
   with _launch_shapes(shapes):
     main_path = _timed_phase(4, phase_main_path)
     _timed_phase(5, phase_card_vs_cpu)
@@ -2767,7 +3261,7 @@ def _main_phases(smi: str, cpu_refs) -> int:
     _timed_phase(7, phase_policy)
     sac = _timed_phase(8, phase_sac)
     conditions = _timed_phase(9, phase_conditions,
-                              main_path["physics_steps_per_s"])
+                              main_path["physics_steps_per_s"], cond_refs)
     cli_run = _timed_phase(10, phase_cli)
     proof = _timed_phase(11, phase_prove_sac)
     physics = _timed_phase(12, phase_physics)
@@ -2779,20 +3273,35 @@ def _main_phases(smi: str, cpu_refs) -> int:
                             main_path["physics_steps_per_s"], cpu_refs)
     osl_track = _timed_phase(16, phase_osl_track,
                              main_path["physics_steps_per_s"], cpu_refs)
-  unchecked = shapes - {(b, n) for b in BATCHES for n in SIZES}
-  _say(f"spd_solve shapes launched in phases 4-16: {sorted(shapes)}; not "
-       f"held against the plain version in phase 3: {sorted(unchecked)}")
+    general_4_16 = cuda_linalg.spd_solve_general_cuda.launches
+    general_path = _timed_phase(17, phase_general_paths, cpu_refs)
+  unchecked = shapes - _checked_shapes()
+  _say(f"spd_solve (dtype, B, n) launched in phases 4-17: {sorted(shapes)}; "
+       f"not held against the plain version in phase 3: "
+       f"{sorted(unchecked)}; general kernel launches in phases 4-16 "
+       f"{general_4_16}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
                          f"never checked")
+  _say(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s")
   _say(smi)
+  general = kernels["spd_solve_general"]
   _say(json.dumps({"kernels": [{
       "name": "spd_solve", "route": "cuda",
       "source": "myosuite_mjx_tpu_torch/csrc/spd_solve.cu",
       "replaces": "myosuite_mjx_tpu/ops/pallas_linalg.py:77",
       "launches": main_path["launches"], **train, **sac, **conditions,
       **cli_run, **proof, "physics_launches": physics["physics_launches"],
-      **contact, **legs, **hand_arm, **osl_track, **kernel}]}))
+      **contact, **legs, **hand_arm, **osl_track,
+      "phase17_launches": general_path["register_launches"],
+      **kernels["spd_solve"]}, {
+      "name": "spd_solve_general", "route": "cuda",
+      "source": "myosuite_mjx_tpu_torch/csrc/spd_solve_general.cu",
+      "replaces": "myosuite_mjx_tpu/ops/linalg.py:19",
+      "launches": general_path["launches"],
+      **{f"phase17{k}_launches": v
+         for k, v in general_path["parts"].items()},
+      "phases4_16_launches": general_4_16, **general}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -1874,3 +1874,57 @@ def track_clips(digits: int = 5) -> dict[str, dict[str, np.ndarray]]:
       clip["robot_vel"] = vel
     out[kind] = clip
   return out
+
+
+# ---------------------------------------------------------------------------
+# chain72: the scene with nv > 64
+# ---------------------------------------------------------------------------
+
+CHAIN_LINKS = 72
+_CHAIN_HANGING = 61       # links hanging straight down from the base
+_CHAIN_LEN = 0.02         # link length
+_CHAIN_RADIUS = 0.008
+_CHAIN_SINK = 0.0005      # the lying links start this far in the floor
+
+
+def chain_fixture_xml(links: int = CHAIN_LINKS,
+                      hanging: int = _CHAIN_HANGING) -> str:
+  """A chain of ``links`` hinged capsule links hanging from a fixed base
+  and lying on a plane ("chain72", nv 72, the default).
+
+  The first ``hanging`` links hang straight down from the base; the rest
+  turn a right angle at the floor and lie along +x on it, 0.5 mm deep so
+  that their contacts are clearly active (11 lying links: 22 contact
+  points, plus the corner link's end, within the 24 contact slots). Every
+  hinge is about y, so the chain is a planar serial tree: the mass matrix
+  is dense and Newton's H is nv x nv. The links collide with the floor
+  only (contype 1, conaffinity 0 against the floor's 1 / 1). Hinges are
+  damped, so the integrator takes the implicit solve. It is the scene
+  whose solves exceed the register kernel's n <= 64.
+  """
+  z_base = hanging * _CHAIN_LEN + _CHAIN_RADIUS - _CHAIN_SINK
+  link = (f'<joint name="hinge{{i}}" type="hinge" axis="0 1 0" '
+          f'damping="0.002" armature="0.0001"/>'
+          f'<geom name="link{{i}}" type="capsule" fromto="0 0 0 0 0 '
+          f'{-_CHAIN_LEN}" size="{_CHAIN_RADIUS}" contype="1" '
+          f'conaffinity="0"/>')
+  body = ""
+  for i in reversed(range(links)):
+    pos = "0 0 0" if i == 0 else f"0 0 {-_CHAIN_LEN}"
+    turn = ' euler="0 -1.5707963267948966 0"' if i == hanging else ""
+    site = (f'<site name="chain_tip" pos="0 0 {-_CHAIN_LEN}"/>'
+            if i == links - 1 else "")
+    body = (f'<body name="c{i}" pos="{pos}"{turn}>'
+            + link.format(i=i) + site + body + "</body>")
+  return f"""<mujoco model="chain_fixture">
+  <compiler angle="radian" autolimits="true"/>
+  <option timestep="0.002" iterations="100" ls_iterations="50"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 0.05" contype="1" conaffinity="1"/>
+    <body name="base" pos="0 0 {z_base}">
+      <geom name="mount" type="sphere" size="0.01" contype="0" conaffinity="0"/>
+      {body}
+    </body>
+  </worldbody>
+</mujoco>
+"""

@@ -478,3 +478,15 @@ def point_jac_dir(m: DeviceModel, cdof: torch.Tensor, points: torch.Tensor,
   proj = (dirs @ cdof[..., 3:].transpose(-1, -2)
           + pc @ cdof[..., :3].transpose(-1, -2))
   return proj * mask
+
+
+def point_jacobian(m: DeviceModel, cdof: torch.Tensor, point: torch.Tensor,
+                   bodyid: int) -> tuple[torch.Tensor, torch.Tensor]:
+  """(jacp, jacr) [B, 3, nv]: the translational and rotational Jacobians
+  of world points ``point`` [B, 3] fixed to body ``bodyid``, from cdof
+  [B, nv, 6]: the dofs on the body's ancestor chain, v = lin + ang x p."""
+  mask = body_dof_mask(m)[int(bodyid)][:, None]                # [nv, 1]
+  ang = cdof[..., :3] * mask                                   # [B, nv, 3]
+  lin0 = cdof[..., 3:] * mask
+  jacp = (lin0 + _cross(ang, point[:, None, :])).transpose(-1, -2)
+  return jacp, ang.transpose(-1, -2)

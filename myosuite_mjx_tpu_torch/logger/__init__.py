@@ -1,1 +1,1 @@
-"""Reference motions for the tracking tasks."""
+"""Reference motions for the tracking tasks, and rollout traces."""

@@ -6,12 +6,16 @@ right-looking Cholesky, one rank-1 update per column, with each pivot
 clamped at ``finfo(dtype).tiny`` as the JAX CPU path does. The Pallas kernel
 (``myosuite_mjx_tpu/ops/pallas_linalg.py``) and the CUDA kernel that
 replaces it (``csrc/spd_solve.cu``) clamp at 1e-30 instead; the two differ
-only for pivots below 1e-30.
+only for pivots below 1e-30. The general kernel (``csrc/spd_solve_general.cu``)
+takes the solves outside the Pallas gate, as the reference's unrolled path
+does, and clamps at ``finfo(dtype).tiny``, as here.
 
 ``spd_solve`` is what the engine calls (M^-1 qfrc_smooth, the Newton
 step and the implicit-damping integrator). A CPU tensor takes the plain
-version. A CUDA tensor goes to the CUDA kernel, which raises on anything it
-does not take; there is no fallback between the two.
+version. A CUDA tensor goes to ``cuda_linalg.spd_solve_cuda``: the register
+kernel for float32 with n <= 64, the general kernel for float64 and for
+n > 64; it raises on anything neither takes. There is no fallback to the
+plain version on the card.
 """
 from __future__ import annotations
 

@@ -1,47 +1,71 @@
-"""The CUDA SPD-solve kernel against its plain PyTorch version, on a card.
+"""The CUDA SPD-solve kernels against their plain PyTorch version, on a card.
 
 Imports no jax, so it runs on the GPU machine too:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_kernel_gpu.py
 
-Without a card every case skips: the kernel has no CPU mode. The sizes
-cover every padded size the kernel is built for (8, 16, 24, 32, 64), both
-ends of each, and n = 1; the batches cover a single system, whole blocks
-(the bulk-copy load) and a ragged last block (the plain load).
+Without a card every case skips: the kernels have no CPU mode. For the
+register kernel (float32, n <= 64) the sizes cover every padded size it is
+built for (8, 16, 24, 32, 64), both ends of each, and n = 1; the batches
+cover a single system, whole blocks (the bulk-copy load) and a ragged last
+block (the plain load). For the general kernel (float64 at any n, float32
+with n > 64) the sizes cover both sides of its shared-memory limit (n 169 /
+170 in float64, 240 / 241 in float32 on an H100), with and without the
+factor; and the entry points that run through it: a float64 ``MyoEnv`` and
+``Physics`` on chain72 (nv 72), each against the CPU.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from myosuite_mjx_tpu_torch.engine import api
+from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
 from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
 
 SIZES = (1, 4, 8, 11, 16, 17, 23, 24, 32, 33, 64)
 BATCHES = (1, 1000, 4096, 4097)
 # float32 on both sides, other operation order: a few ulps of the scale
 BOUND = 2e-5
+# the general kernel: float64 at any n, float32 with n > 64
+GENERAL_F64_SIZES = (1, 7, 23, 35, 50, 64, 65, 72, 128, 169, 170, 200)
+GENERAL_F32_SIZES = (65, 72, 128, 239, 240, 241, 256)
+GENERAL_BATCHES = (1, 16, 4097)
+# relative to the scale, as BOUND: a few ulps of each type
+GENERAL_BOUND = {torch.float32: 2e-5, torch.float64: 1e-12}
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "myosuite_mjx_tpu_torch", "assets")
 
 
-def _spd(n: int, batch: int, seed: int):
+def _spd(n: int, batch: int, seed: int, dtype=np.float32):
   rng = np.random.default_rng(seed)
   r = rng.normal(size=(batch, n, n))
   a = r @ r.transpose(0, 2, 1) / n + np.eye(n)
-  return a.astype(np.float32), rng.normal(size=(batch, n)).astype(np.float32)
+  return a.astype(dtype), rng.normal(size=(batch, n)).astype(dtype)
 
 
-def _check_against_plain(ac: torch.Tensor, bc: torch.Tensor):
-  before = cuda_linalg.spd_solve_cuda.launches
+def _check_against_plain(ac: torch.Tensor, bc: torch.Tensor,
+                         counter=cuda_linalg.spd_solve_cuda,
+                         bound: float = BOUND):
+  """Both calls (with and without the factor) launch ``counter``'s kernel
+  once each and agree with the plain version."""
+  counters = (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda)
+  before = [c.launches for c in counters]
   x, L = cuda_linalg.spd_solve_cuda(ac, bc, factor=True)
   x_only = cuda_linalg.spd_solve_cuda(ac, bc)
   xp, Lp = linalg.spd_solve_plain(ac, bc, factor=True)
   torch.cuda.synchronize()
-  assert cuda_linalg.spd_solve_cuda.launches == before + 2
+  assert [c.launches - n for c, n in zip(counters, before)] == [
+      2 if c is counter else 0 for c in counters]
   assert torch.equal(x, x_only)
   np.testing.assert_allclose(x.cpu().numpy(), xp.cpu().numpy(), rtol=0,
-                             atol=BOUND * float(xp.abs().max()))
+                             atol=bound * float(xp.abs().max()))
   np.testing.assert_allclose(L.cpu().numpy(), Lp.cpu().numpy(), rtol=0,
-                             atol=BOUND * float(Lp.abs().max()))
+                             atol=bound * float(Lp.abs().max()))
 
 
 @pytest.mark.gpu
@@ -72,15 +96,107 @@ def test_kernel_on_misaligned_view(n):
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take():
+  """Float64 and n > 64 are taken since the general kernel came; other
+  types, mixed types, non-contiguous inputs, mixed devices and n = 0 are
+  not."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card")
   a, b = _spd(5, 3, seed=0)
   ac = torch.as_tensor(a, device="cuda")
   bc = torch.as_tensor(b, device="cuda")
   with pytest.raises(TypeError):
-    cuda_linalg.spd_solve_cuda(ac.double(), bc.double())
+    cuda_linalg.spd_solve_cuda(ac.half(), bc.half())
+  with pytest.raises(TypeError):
+    cuda_linalg.spd_solve_cuda(ac, bc.double())
   with pytest.raises(ValueError):
     cuda_linalg.spd_solve_cuda(ac.transpose(1, 2), bc)
   with pytest.raises(ValueError):
-    cuda_linalg.spd_solve_cuda(torch.zeros(2, 65, 65, device="cuda"),
-                               torch.zeros(2, 65, device="cuda"))
+    cuda_linalg.spd_solve_cuda(ac, bc.cpu())
+  with pytest.raises(ValueError):
+    cuda_linalg.spd_solve_cuda(torch.zeros(2, 0, 0, device="cuda"),
+                               torch.zeros(2, 0, device="cuda"))
+  for fn in (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda):
+    assert fn(ac.double(), bc.double()).dtype == torch.float64
+    x = fn(torch.eye(65, device="cuda").expand(2, 65, 65).contiguous(),
+           torch.ones(2, 65, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.ones(2, 65, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", GENERAL_BATCHES)
+@pytest.mark.parametrize("dtype, n", [
+    *((torch.float64, n) for n in GENERAL_F64_SIZES),
+    *((torch.float32, n) for n in GENERAL_F32_SIZES)],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_general_kernel_matches_plain_on_card(dtype, n, batch):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  np_dtype = np.float64 if dtype == torch.float64 else np.float32
+  a, b = _spd(n, batch, seed=n * 10_000 + batch + 7, dtype=np_dtype)
+  _check_against_plain(torch.as_tensor(a, device="cuda"),
+                       torch.as_tensor(b, device="cuda"),
+                       cuda_linalg.spd_solve_general_cuda,
+                       GENERAL_BOUND[dtype])
+
+
+@pytest.mark.gpu
+def test_general_kernel_shared_memory_limit():
+  """The sizes above straddle the limit the kernel reads from the card."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  n64 = cuda_linalg.general_max_shared_n(torch.float64)
+  n32 = cuda_linalg.general_max_shared_n(torch.float32)
+  assert min(GENERAL_F64_SIZES) <= n64 < max(GENERAL_F64_SIZES)
+  assert 64 < n32 < max(GENERAL_F32_SIZES)
+
+
+@pytest.mark.gpu
+def test_float64_env_runs_through_the_general_kernel():
+  """MyoEnv in float64 on the card (the repaired fault): hand23's pose
+  task, 4 envs, 3 control steps, against the same on the CPU. Float64 on
+  both sides in another operation order; contact rows amplify it."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  actions = np.random.default_rng(0).uniform(0, 1, (3, 4, 39))
+  out = {}
+  before = cuda_linalg.spd_solve_general_cuda.launches
+  for device in ("cuda", "cpu"):
+    benv = BatchedEnv(PoseEnv(os.path.join(ASSETS, "hand23.npz"),
+                              dtype=torch.float64, **HAND_POSE_FIXED), 4,
+                      device)
+    st = benv.init()
+    for a in actions:
+      st = benv.step(st, torch.as_tensor(a, device=device))
+    out[device] = st
+  torch.cuda.synchronize()
+  assert cuda_linalg.spd_solve_general_cuda.launches > before
+  for f in ("qpos", "qvel", "act"):
+    np.testing.assert_allclose(
+        getattr(out["cuda"].data, f).cpu().numpy(),
+        getattr(out["cpu"].data, f).numpy(), rtol=0, atol=1e-6, err_msg=f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_chain72_physics_runs_through_the_general_kernel(dtype):
+  """Physics on chain72 (every solve 72 x 72) on the card, 10 substeps of
+  8 envs, against float64 on the CPU: float32 within the free-joint
+  scene's card bound (qpos 1e-4), float64 within 1e-8."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  path = os.path.join(ASSETS, "chain72.npz")
+  qvel = np.random.default_rng(1).normal(scale=0.05, size=(8, 72))
+  res = {}
+  before = cuda_linalg.spd_solve_general_cuda.launches
+  for device, dt in (("cuda", dtype), ("cpu", torch.float64)):
+    phys = api.load(path, dt, device)
+    d = phys.make_data(8)
+    d = d.replace(qvel=torch.as_tensor(qvel, dtype=dt, device=device))
+    res[device] = phys.step_n(10)(d)
+  torch.cuda.synchronize()
+  assert cuda_linalg.spd_solve_general_cuda.launches > before
+  bound = 1e-4 if dtype == torch.float32 else 1e-8
+  np.testing.assert_allclose(res["cuda"].qpos.double().cpu().numpy(),
+                             res["cpu"].qpos.numpy(), rtol=0, atol=bound)

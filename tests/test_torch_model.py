@@ -23,6 +23,8 @@ from myosuite_mjx_tpu_torch.engine import data as tdata
 from myosuite_mjx_tpu_torch.engine import model as tmodel
 from myosuite_mjx_tpu_torch.envs import base, fatigue, randomize
 from myosuite_mjx_tpu_torch.train import sac
+from myosuite_mjx_tpu_torch.utils import curriculum, min_jerk
+from myosuite_mjx_tpu_torch.utils import paths as path_utils
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 # top-level packages the port and chip_smoke.py must not import
@@ -50,7 +52,7 @@ def _assert_models_equal(a: tmodel.Model, b: tmodel.Model):
 @pytest.mark.parametrize("digits", [2, 5, "free", "prims", *(
     f"{obj}{d}" for obj in OBJECTS for d in (2, 5)), *LEGS, "plate",
     "hulls", *(f"{s}{d}" for s in TASK_SCENES for d in (2, 5)), *SAR,
-    "osl54", *TRACK])
+    "osl54", *TRACK, "chain72"])
 def test_checked_in_npz_equals_fresh_export(digits):
   fresh = export_model(fixture_xml(digits))
   with np.load(FIXTURE_NPZ[digits]) as z:
@@ -136,6 +138,10 @@ def test_port_sources_import_no_jax_flax_mujoco_or_jax_package():
                  for f in files if f.endswith(".py"))
   paths.append(os.path.join(REPO, "chip_smoke.py"))
   assert len(paths) >= 20, paths
+  # the walk reaches the utilities and the trace logger
+  for sub in (("utils", "ik.py"), ("utils", "xml_utils.py"),
+              ("utils", "examine_sim.py"), ("logger", "trace.py")):
+    assert os.path.join(pkg, *sub) in paths, sub
   found = []
   for path in paths:
     with open(path) as f:
@@ -147,7 +153,9 @@ def test_port_sources_import_no_jax_flax_mujoco_or_jax_package():
     base.MyoEnv.reset, base.BatchedEnv.__init__, base.state_from_numpy,
     tmodel.DeviceModel.__init__, tdata.make_data, tdata.data_from_numpy,
     sac.SAC.__init__, randomize.sample_overlay, fatigue.init_state,
-    api.Physics.__init__, api.load],
+    api.Physics.__init__, api.load, path_utils.obs_layout,
+    path_utils.compute_path_rewards, min_jerk.generate_joint_space_min_jerk,
+    curriculum.init],
                          ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
   assert inspect.signature(fn).parameters["device"].default == "cuda"

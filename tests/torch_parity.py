@@ -80,17 +80,20 @@ SAR_NPZ = {key: os.path.join(ASSETS, "hand{}_sar{}.npz".format(
 OSL_NPZ = os.path.join(ASSETS, "osl54.npz")
 TRACK = {"track29": 5, "track17": 2}
 TRACK_NPZ = {name: os.path.join(ASSETS, f"{name}.npz") for name in TRACK}
+# the hanging and lying chain of 72 hinges, the scene with nv > 64
+CHAIN_NPZ = os.path.join(ASSETS, "chain72.npz")
 # every checked-in fixture: the hands by digit count, "free", "prims", the
 # object scenes as "<object><digits>" (e.g. "key2"), the leg scenes,
 # "plate", "hulls", the task scenes as "<scene><digits>" (e.g.
-# "relocate5"), the SAR hands, "osl54" and the tracking scenes
+# "relocate5"), the SAR hands, "osl54", the tracking scenes and "chain72"
 FIXTURE_NPZ = {**NPZ, "free": FREE_NPZ, "prims": PRIMS_NPZ,
                **{f"{obj}{digits}": path
                   for (obj, digits), path in OBJECT_NPZ.items()},
                **LEGS_NPZ, "plate": PLATE_NPZ, "hulls": HULLS_NPZ,
                **{f"{scene}{digits}": path
                   for (scene, digits), path in SCENE_NPZ.items()},
-               **SAR_NPZ, "osl54": OSL_NPZ, **TRACK_NPZ}
+               **SAR_NPZ, "osl54": OSL_NPZ, **TRACK_NPZ,
+               "chain72": CHAIN_NPZ}
 # the OSL scene's gait table, and the tracking scenes' clips by (scene,
 # clip name): track29_lift_clip.npz ...
 OSL_GAIT_CSV = os.path.join(ASSETS, "osl54_gait_cycle.csv")
@@ -131,6 +134,8 @@ def fixture_xml(key) -> str:
     return fixtures.osl_fixture_xml()
   if key in TRACK:
     return fixtures.track_fixture_xml(TRACK[key])
+  if key == "chain72":
+    return fixtures.chain_fixture_xml()
   if isinstance(key, str):
     return getattr(fixtures, f"{key[:-1]}_fixture_xml")(int(key[-1]))
   return hand_fixture_xml(key)
@@ -375,7 +380,8 @@ def main(argv=None) -> None:
                   help="compile every fixture (hand11, hand23, free10, "
                        "prims36, the hand-object scenes, the leg scenes, "
                        "the plate, hulls, the baoding, SAR, relocate, "
-                       "bimanual, OSL and tracking scenes) and write its "
+                       "bimanual, OSL, tracking and chain72 scenes) and "
+                       "write its "
                        ".npz file, the SAR geometry tables, the OSL gait "
                        "table and the tracking clips")
   ap.add_argument("--out-dir", default=os.path.normpath(ASSETS))

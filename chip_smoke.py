@@ -10,7 +10,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build: compiles the SPD-solve kernels (csrc/spd_solve.cu, the register
    kernel, and csrc/spd_solve_general.cu, the general kernel) from source,
    all started together, and prints registers and spills of each padded
-   size or type they are built for; fails if any of them spills;
+   size or type they are built for (the general kernel's ten instances by
+   route: ``reg_kernel`` at each of ``GENERAL_PADDED_SIZES``, ``tile`` and
+   ``inplace`` in both types); fails if one is missing or spills;
 3. kernel check: the register kernel against its plain PyTorch version and
    against
    float64 ``torch.linalg.solve`` on random SPD batches (every padded size
@@ -26,11 +28,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cudaErrorStreamCaptureUnsupported). Then the general kernel (float64 at
    any n, float32 with n > 64) against the plain version and a float64
    ``torch.linalg.solve`` at ``GENERAL_F64_SIZES`` and
-   ``GENERAL_F32_SIZES``, both sides of its shared-memory limit, at
-   ``GENERAL_BATCHES`` and at phase 17's ``GENERAL_PATH_SHAPES``, with and
-   without the factor (the float64 solve at the batches of up to 16
-   systems, and at every batch for n <= 72); timed as the register
-   kernel at [4096, 23] float64 and [4096, 72] float32;
+   ``GENERAL_F32_SIZES`` through the dispatch and at
+   ``GENERAL_F32_DIRECT_SIZES`` through ``spd_solve_general_cuda`` (both
+   ends of each padded size and route switch, both sides of its
+   shared-memory limit), at ``GENERAL_BATCHES``, with and without the
+   factor (the float64 solve at the batches of up to 16 systems, and at
+   every batch for n <= 72); on misaligned views; on the clamp cases
+   (``_clamp_systems``: the NaN and infinity pattern of x equal, finite
+   entries within the bound of each system's scale); timed as the
+   register kernel at [4096, 23] float64 and [4096, 72] float32. Last, the
+   register kernel (NP 64) and the general kernel's float32 route on the
+   same [4096, 35] and [4096, 50] systems, each held against the plain
+   version and timed as 50 launches in a CUDA graph, in turns;
 4. main path: ``PoseEnv`` on the synthetic hand23 scene with the
    myoHandPoseFixed-v0 task, ``BatchedEnv`` of 4096 envs, ``init`` and 105
    control steps, so every env crosses horizon 100 once; checks finite
@@ -466,17 +475,27 @@ OSL_TRACK_RATE_TASKS = ("osl54OslRunFixed-v0", "osl54OslRunRandom-v0",
                         "track29CubesmallRandom-v0", "track29CubesmallLift-v0")
 # (5 keeps the whole command under 1,000 s with phase 17)
 OSL_TRACK_STEPS = 5
-# the general kernel (csrc/spd_solve_general.cu): float64 at any n and
-# float32 with n > 64. Phase 3 holds it at these sizes, on both sides of
-# its shared-memory limit (n 169 / 170 in float64, 240 / 241 in float32 on
-# an H100) and at every size phase 17 launches (23, 72), at one system,
-# phase 17's B = 16 and a ragged batch; and at phase 17's main batch for
-# the sizes it launches there
-GENERAL_F64_SIZES = (1, 7, 23, 35, 50, 64, 65, 72, 128, 169, 170, 200)
+# the general kernel (csrc/spd_solve_general.cu): float64 with n <= 64 in
+# registers at these padded sizes (route (a)), float32 at any n and float64
+# above 64 in a shared-memory tile (route (b)) up to its limit (n 168 in
+# float64, 240 in float32 on an H100), in place in L above it (route (c)).
+# Phase 3 holds it at both ends of every padded size and on both sides of
+# each route switch, at one system, phase 17's B = 16, B_MAIN and a ragged
+# batch, which covers every size phase 17 launches (23, 72); float32 below
+# 65 only through spd_solve_general_cuda itself (the dispatch sends it to
+# the register kernel)
+GENERAL_PADDED_SIZES = (8, 16, 24, 32, 48, 64)
+GENERAL_F64_SIZES = (1, 8, 9, 16, 17, 23, 24, 25, 32, 33, 48, 49, 64, 65, 72,
+                     128, 168, 169, 200)
 GENERAL_F32_SIZES = (65, 72, 128, 239, 240, 241, 256)
-GENERAL_BATCHES = (1, 16, 4097)
-GENERAL_PATH_SHAPES = ((torch.float64, B_MAIN, 23),
-                       (torch.float32, B_MAIN, 72))
+GENERAL_F32_DIRECT_SIZES = (1, 23, 35, 50, 64)
+GENERAL_BATCHES = (1, 16, B_MAIN, B_MAIN + 1)
+# the clamp cases (``_clamp_systems``) at the ends of each route
+GENERAL_CLAMP_SIZES = {torch.float64: (1, 2, 23, 64, 65, 72, 169),
+                       torch.float32: (2, 35, 65, 72, 241)}
+# the float32 n = 33-64 question: the register kernel (NP 64) against the
+# general kernel's float32 route, on the same systems
+F32_COMPARE_SIZES = (35, 50)
 # above n = 72 the float64 reference solve of a large batch takes seconds:
 # there the kernel is held against the plain version only
 GENERAL_REF_N = 72
@@ -552,16 +571,29 @@ def _ptxas_report(log: str) -> dict:
 
 
 def _ptxas_general(log: str) -> dict:
-  """Registers and spill bytes per element type of the general kernel."""
-  out, kind = {}, None
+  """Registers and spill bytes of each instance of the general kernel, by
+  route and padded size or type: ``reg NP=24 float64 (G 8, SB 8)``,
+  ``tile float32``, ``inplace float64``. Only an entry's own "Function
+  properties" block counts (ptxas prints one for each subroutine too)."""
+  types = {"f": "float32", "d": "float64"}
+  out, kind, entry = {}, None, None
   for ln in log.splitlines():
-    m = re.search(r"spd_solve_general_kernelI([fd])E", ln)
-    if "Compiling entry function" in ln and m:
-      kind = {"f": "float32", "d": "float64"}[m.group(1)]
-      out[kind] = {}
+    if "Compiling entry function" in ln:
+      kind = None
+      entry = re.search(r"'([^']+)'", ln).group(1)
+      if m := re.search(r"reg_kernelILi(\d+)ELi(\d+)ELi(\d+)E", ln):
+        kind = (f"reg NP={m.group(1)} float64 (G {m.group(2)}, SB "
+                f"{m.group(3)})")
+      elif m := re.search(r"(tile|inplace)_kernelI([fd])E", ln):
+        kind = f"{m.group(1)} {types[m.group(2)]}"
+      if kind is not None:
+        out[kind] = {}
+      own = True
+    elif "Function properties for" in ln:
+      own = ln.rstrip().endswith(entry)
     elif kind is not None:
-      if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        ln):
+      m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+      if m and own:
         out[kind]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
       if m := re.search(r"Used (\d+) registers", ln):
         out[kind]["registers"] = int(m.group(1))
@@ -580,15 +612,20 @@ def phase_build():
     _say(f"build: {sec:.2f} s -> {os.path.relpath(p, ROOT)}"
          f"{'' if sec else ' (already built)'}")
   general = _ptxas_general(glog)
-  if sorted(general) != ["float32", "float64"]:
-    raise AssertionError(f"ptxas reported general kernel types "
-                         f"{sorted(general)}")
-  for kind, rep in sorted(general.items()):
+  expected = ([f"reg NP={np_} float64" for np_ in GENERAL_PADDED_SIZES]
+              + [f"{r} {t}" for r in ("tile", "inplace")
+                 for t in ("float32", "float64")])
+  found = [k.split(" (")[0] for k in general]
+  if sorted(found) != sorted(expected):
+    raise AssertionError(f"ptxas reported general kernel instances "
+                         f"{sorted(general)}, expected {sorted(expected)}")
+  for kind, rep in general.items():
     _say(f"build: general kernel, {kind}: {rep.get('registers')} registers, "
          f"{rep.get('spill_bytes')} bytes spilled")
-    if rep.get("spill_bytes") != 0:
-      raise AssertionError(f"the general kernel spills in {kind} (or no "
-                           f"report)")
+  spilled = [k for k, rep in general.items() if rep.get("spill_bytes") != 0]
+  if spilled:
+    raise AssertionError(f"the general kernel spills in {spilled} (or no "
+                         f"report)")
   report = _ptxas_report(log)
   if sorted(report) != list(PADDED_SIZES):
     raise AssertionError(f"ptxas reported sizes {sorted(report)}, expected "
@@ -599,6 +636,7 @@ def phase_build():
          f"registers, {rep.get('spill_bytes')} bytes spilled")
     if rep.get("spill_bytes") != 0:
       raise AssertionError(f"NP={size} spills registers (or no report)")
+  return general
 
 
 def _time_ms(fn, reps: int = 50) -> float:
@@ -801,15 +839,18 @@ def phase_kernel_check() -> dict:
   return out
 
 
-def _general_errors(a64, b64, dtype, with_ref: bool):
+def _general_errors(a64, b64, dtype, with_ref: bool, a=None, fn=None):
   """General kernel vs plain (x, factor) and, ``with_ref``, vs a float64
   solve (else 0), each relative to the largest entry, on ``dtype`` copies
-  of a float64 system; also the largest absolute difference of x from
-  plain."""
+  of a float64 system (``a``: a view holding them); also the largest
+  absolute difference of x from plain. ``fn`` is the wrapper called: the
+  dispatch (by default), or ``spd_solve_general_cuda`` itself."""
   from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
-  a, b = a64.to(dtype), b64.to(dtype)
-  x, L = cuda_linalg.spd_solve_cuda(a, b, factor=True)
-  x_only = cuda_linalg.spd_solve_cuda(a, b)
+  fn = fn or cuda_linalg.spd_solve_cuda
+  a = a64.to(dtype) if a is None else a
+  b = b64.to(dtype)
+  x, L = fn(a, b, factor=True)
+  x_only = fn(a, b)
   xp, Lp = linalg.spd_solve_plain(a, b, factor=True)
   ref_err = 0.0
   if with_ref:
@@ -823,33 +864,96 @@ def _general_errors(a64, b64, dtype, with_ref: bool):
           float((L - Lp).abs().max()) / float(Lp.abs().max()), ref_err, diff)
 
 
+def _clamp_systems(n: int, dtype):
+  """Systems whose factor meets the clamp: each an SPD background with a
+  decoupled block at position p (first, middle, last) that is (0) a zero row
+  and column, a pivot of exactly 0; (1) the same with a diagonal of -2^-20,
+  a pivot below tiny; (2) [[4, 2], [2, 1]], a pivot that reaches 0; (3)
+  [[4, 2], [2, 1 - 2^-20]], a pivot that reaches -2^-20. Every operation on
+  the blocks is exact, so both versions meet the same pivots; x is finite
+  in (1) and (3), NaN or infinite in (0) and (2)."""
+  g = torch.Generator(device=DEVICE).manual_seed(n)
+  blocks = ([[0.0]], [[-2.0 ** -20]], [[4.0, 2.0], [2.0, 1.0]],
+            [[4.0, 2.0], [2.0, 1.0 - 2.0 ** -20]])
+  mats = []
+  for blk in blocks:
+    size = len(blk)
+    for p in sorted({0, (n - size) // 2, n - size}) if n >= size else ():
+      r = torch.randn(n, n, generator=g, dtype=torch.float64, device=DEVICE)
+      a = r @ r.T / n + torch.eye(n, dtype=torch.float64, device=DEVICE)
+      a[p:p + size, :] = 0.0
+      a[:, p:p + size] = 0.0
+      a[p:p + size, p:p + size] = torch.tensor(blk, dtype=torch.float64)
+      mats.append(a)
+  a = torch.stack(mats)
+  b = torch.randn(a.shape[:2], generator=g, dtype=torch.float64,
+                  device=DEVICE)
+  return a.to(dtype), b.to(dtype)
+
+
+def _clamp_errors(a, b) -> tuple:
+  """The general kernel against the plain version on ``_clamp_systems``:
+  the same NaN and signed-infinity pattern in x; on the finite entries the
+  largest difference of x and of L relative to its system's largest entry.
+  Returns (x error, L error, finite entries of x, non-finite)."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
+  x, L = cuda_linalg.spd_solve_general_cuda(a, b, factor=True)
+  x_only = cuda_linalg.spd_solve_general_cuda(a, b)
+  xp, Lp = linalg.spd_solve_plain(a, b, factor=True)
+  torch.cuda.synchronize()
+  if not torch.equal(x.nan_to_num(), x_only.nan_to_num()):
+    raise AssertionError("the general kernel's x differs with the factor")
+  for what, k, p in (("x", x, xp), ("L", L, Lp)):
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+      if not torch.equal(test(k), test(p)):
+        raise AssertionError(f"clamp case: {what} has another "
+                             f"{test.__name__[2:]} pattern than the plain "
+                             f"version")
+
+  def rel(k, p):
+    fin = torch.isfinite(p)
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    scale = torch.where(fin, p.abs(), zero).flatten(1).amax(1)
+    diff = torch.where(fin, (k - p).abs(), zero).flatten(1).amax(1)
+    return float((diff / scale.clamp_min(torch.finfo(p.dtype).tiny)).max())
+
+  fin = int(torch.isfinite(xp).sum())
+  return rel(x, xp), rel(L, Lp), fin, xp.numel() - fin
+
+
+def _general_route(dtype, n: int, limit: int) -> str:
+  if dtype == torch.float64 and n <= 64:
+    return f"registers, NP {min(p for p in GENERAL_PADDED_SIZES if p >= n)}"
+  return "shared tile" if n <= limit else "in place"
+
+
 def phase_general_check() -> dict:
   """Phase 3, second half: the general kernel at every size and batch of
-  GENERAL_*, then its times at [4096, 23] float64 and [4096, 72] float32."""
+  GENERAL_*, on misaligned views and on the clamp cases, then its times at
+  [4096, 23] float64 and [4096, 72] float32."""
   from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
   g = torch.Generator(device=DEVICE).manual_seed(1)
   limits = {dt: cuda_linalg.general_max_shared_n(dt)
             for dt in (torch.float64, torch.float32)}
-  _say(f"general kernel: systems staged in shared memory up to n = "
-       f"{limits[torch.float64]} (float64), {limits[torch.float32]} "
-       f"(float32); in place in L above")
+  _say(f"general kernel: float64 in registers up to n = 64; systems staged "
+       f"in shared memory up to n = {limits[torch.float64]} (float64), "
+       f"{limits[torch.float32]} (float32); in place in L above")
   n0 = cuda_linalg.spd_solve_general_cuda.launches
   r0 = cuda_linalg.spd_solve_cuda.launches
   worst_abs = {}
-  cases = {}
-  for dtype, sizes in ((torch.float64, GENERAL_F64_SIZES),
-                       (torch.float32, GENERAL_F32_SIZES)):
-    for n in sizes:
-      cases[dtype, n] = list(GENERAL_BATCHES)
-  for dtype, batch, n in GENERAL_PATH_SHAPES:
-    cases[dtype, n].append(batch)
-  for (dtype, n), batches in cases.items():
+  cases = [(torch.float64, n, cuda_linalg.spd_solve_cuda)
+           for n in GENERAL_F64_SIZES]
+  cases += [(torch.float32, n, cuda_linalg.spd_solve_cuda)
+            for n in GENERAL_F32_SIZES]
+  cases += [(torch.float32, n, cuda_linalg.spd_solve_general_cuda)
+            for n in GENERAL_F32_DIRECT_SIZES]
+  for dtype, n, fn in cases:
     bound = GENERAL_BOUND[dtype]
     worst = [0.0, 0.0, 0.0]
     t0 = time.perf_counter()
-    for batch in batches:
+    for batch in GENERAL_BATCHES:
       errs = _general_errors(*_random_spd(n, batch, g), dtype,
-                             batch <= 16 or n <= GENERAL_REF_N)
+                             batch <= 16 or n <= GENERAL_REF_N, fn=fn)
       worst = [max(w, e) for w, e in zip(worst, errs)]
       # against the float64 solve a float32 result keeps float32's
       # rounding times the condition (random batches: eigenvalues >= 1)
@@ -858,13 +962,44 @@ def phase_general_check() -> dict:
                              f"B={batch}: {errs}")
       if batch == B_MAIN:
         worst_abs[dtype, n] = errs[3]
-    where = "shared" if n <= limits[dtype] else "in place"
-    _say(f"general kernel {str(dtype)[6:]} n={n} ({where}) B={batches}: "
-         f"rel err vs plain {worst[0]:.3e}, factor {worst[1]:.3e}, vs "
-         f"float64 solve {worst[2]:.3e} (bound {bound:g}) ok, "
-         f"{time.perf_counter() - t0:.1f} s")
+    _say(f"general kernel {str(dtype)[6:]} n={n} "
+         f"({_general_route(dtype, n, limits[dtype])}, {fn.__name__}) "
+         f"B={GENERAL_BATCHES}: rel err vs plain {worst[0]:.3e}, factor "
+         f"{worst[1]:.3e}, vs float64 solve {worst[2]:.3e} (bound {bound:g})"
+         f" ok, {time.perf_counter() - t0:.1f} s")
+  # contiguous views one element past a 16-byte boundary: the plain loads
+  for dtype, n in ((torch.float64, 23), (torch.float64, 24),
+                   (torch.float64, 64), (torch.float32, 72)):
+    a64, b64 = _random_spd(n, B_MAIN, g)
+    big = torch.empty(a64.numel() + 1, dtype=dtype, device=DEVICE)
+    view = big[1:].view(a64.shape)
+    view.copy_(a64)
+    if view.data_ptr() % 16 == 0:
+      raise AssertionError("the misaligned view is aligned")
+    errs = _general_errors(a64, b64, dtype, True, view)
+    if max(errs[:2]) > GENERAL_BOUND[dtype] or errs[2] > RANDOM_BOUND:
+      raise AssertionError(f"general kernel disagrees on the misaligned "
+                           f"view {dtype} n={n}: {errs}")
+    _say(f"general kernel {str(dtype)[6:]} n={n} B={B_MAIN} misaligned view: "
+         f"rel err vs plain {errs[0]:.3e}, factor {errs[1]:.3e}, vs float64 "
+         f"solve {errs[2]:.3e} ok")
+  clamp_launches = 0
+  for dtype, sizes in GENERAL_CLAMP_SIZES.items():
+    bound = GENERAL_BOUND[dtype]
+    for n in sizes:
+      a, b = _clamp_systems(n, dtype)
+      ex, el, fin, nonfin = _clamp_errors(a, b)
+      clamp_launches += 2
+      _say(f"general kernel clamp cases {str(dtype)[6:]} n={n} "
+           f"({_general_route(dtype, n, limits[dtype])}) B={a.shape[0]}: "
+           f"NaN and inf patterns equal ({nonfin} entries of x non-finite, "
+           f"{fin} finite); rel err per system vs plain x {ex:.3e}, factor "
+           f"{el:.3e} (bound {bound:g}) {'ok' if max(ex, el) <= bound else 'FAIL'}")
+      if max(ex, el) > bound:
+        raise AssertionError(f"general kernel disagrees on the clamp cases "
+                             f"at {dtype} n={n}")
   checked = cuda_linalg.spd_solve_general_cuda.launches - n0
-  expected = 2 * sum(len(b) for b in cases.values())
+  expected = 2 * (len(cases) * len(GENERAL_BATCHES) + 4) + clamp_launches
   if checked != expected or cuda_linalg.spd_solve_cuda.launches != r0:
     raise AssertionError(f"general kernel launches {checked} (expected "
                          f"{expected}); register kernel launches "
@@ -913,11 +1048,46 @@ def phase_general_check() -> dict:
   return main
 
 
+def phase_f32_compare() -> dict:
+  """Phase 3, last: the register kernel (padded to NP 64) against the
+  general kernel's float32 route on the same [B_MAIN, n] systems, n in
+  F32_COMPARE_SIZES, each held against the plain version and timed as 50
+  launches in a CUDA graph, in turns."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
+  g = torch.Generator(device=DEVICE).manual_seed(2)
+  out = {}
+  for n in F32_COMPARE_SIZES:
+    a64, b64 = _random_spd(n, B_MAIN, g)
+    a, b = a64.float(), b64.float()
+    fns = {"register": lambda: cuda_linalg.spd_solve_cuda(a, b),
+           "general": lambda: cuda_linalg.spd_solve_general_cuda(a, b)}
+    xp = linalg.spd_solve_plain(a, b)
+    for which, fn in fns.items():
+      err = float((fn() - xp).abs().max()) / float(xp.abs().max())
+      if err > RANDOM_BOUND:
+        raise AssertionError(f"{which} kernel disagrees at [{B_MAIN}, {n}]: "
+                             f"{err}")
+    graph = {"register": [], "general": []}
+    for which in ("register", "general", "general", "register"):
+      graph[which].append(_graph_ms(fns[which]))
+    bound_ms, bound_by = _bound_ms(a, b)
+    _say(f"float32 [{B_MAIN}, {n}], CUDA graph of 50 launches: register "
+         f"kernel (NP 64) {graph['register']} ms, general kernel (shared "
+         f"tile) {graph['general']} ms; bound {bound_ms:.6f} ms by "
+         f"{bound_by}")
+    out[str(n)] = {"register_graph_ms": float(np.mean(graph["register"])),
+                   "general_graph_ms": float(np.mean(graph["general"])),
+                   "bound_ms": bound_ms}
+  return out
+
+
 def phase_kernels() -> dict:
-  """Phase 3: the register kernel, then the general kernel."""
+  """Phase 3: the register kernel, the general kernel, then the two on
+  float32 systems with 33 <= n <= 64."""
   out = {}
   for name, fn in (("spd_solve", phase_kernel_check),
-                   ("spd_solve_general", phase_general_check)):
+                   ("spd_solve_general", phase_general_check),
+                   ("f32_compare", phase_f32_compare)):
     t0 = time.perf_counter()
     out[name] = fn()
     _say(f"phase 3, {name}: {time.perf_counter() - t0:.1f} s")
@@ -3228,7 +3398,7 @@ def _timed_phase(number: int, fn, *args):
 def main() -> int:
   t0 = time.perf_counter()
   smi = phase_device()
-  _timed_phase(2, phase_build)
+  instances = _timed_phase(2, phase_build)
   # phases 9's and 13-17's CPU references, in one worker while the card
   # works
   pool = concurrent.futures.ProcessPoolExecutor(
@@ -3236,7 +3406,7 @@ def main() -> int:
   with pool:
     cond_refs = pool.submit(cpu_references_conditions)
     cpu_refs = pool.submit(cpu_references)
-    return _main_phases(smi, cond_refs, cpu_refs, t0)
+    return _main_phases(smi, instances, cond_refs, cpu_refs, t0)
 
 
 def _checked_shapes() -> set:
@@ -3245,11 +3415,11 @@ def _checked_shapes() -> set:
           | {("float64", b, n) for b in GENERAL_BATCHES
              for n in GENERAL_F64_SIZES}
           | {("float32", b, n) for b in GENERAL_BATCHES
-             for n in GENERAL_F32_SIZES}
-          | {(str(dt)[6:], b, n) for dt, b, n in GENERAL_PATH_SHAPES})
+             for n in GENERAL_F32_SIZES})
 
 
-def _main_phases(smi: str, cond_refs, cpu_refs, t_start: float) -> int:
+def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
+                 t_start: float) -> int:
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
   kernels = _timed_phase(3, phase_kernels)
   shapes: set = set()
@@ -3301,7 +3471,9 @@ def _main_phases(smi: str, cond_refs, cpu_refs, t_start: float) -> int:
       "launches": general_path["launches"],
       **{f"phase17{k}_launches": v
          for k, v in general_path["parts"].items()},
-      "phases4_16_launches": general_4_16, **general}]}))
+      "phases4_16_launches": general_4_16, **general,
+      "float32_register_vs_general": kernels["f32_compare"],
+      "instances": instances}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

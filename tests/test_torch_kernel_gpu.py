@@ -8,11 +8,14 @@ Without a card every case skips: the kernels have no CPU mode. For the
 register kernel (float32, n <= 64) the sizes cover every padded size it is
 built for (8, 16, 24, 32, 64), both ends of each, and n = 1; the batches
 cover a single system, whole blocks (the bulk-copy load) and a ragged last
-block (the plain load). For the general kernel (float64 at any n, float32
-with n > 64) the sizes cover both sides of its shared-memory limit (n 169 /
-170 in float64, 240 / 241 in float32 on an H100), with and without the
-factor; and the entry points that run through it: a float64 ``MyoEnv`` and
-``Physics`` on chain72 (nv 72), each against the CPU.
+block (the plain load). For the general kernel the sizes cover both ends of
+each padded size of its float64 register route (8, 16, 24, 32, 48, 64) and
+both sides of each route switch (64 / 65 to the shared tile, its
+shared-memory limit: n 168 / 169 in float64, 240 / 241 in float32 on an
+H100), with and without the factor, at one system, B = 16, 4096 and 4097;
+misaligned views (the plain loads); the clamp cases (pivots that reach 0 or
+go below tiny); and the entry points that run through it: a float64
+``MyoEnv`` and ``Physics`` on chain72 (nv 72), each against the CPU.
 """
 from __future__ import annotations
 
@@ -31,10 +34,13 @@ SIZES = (1, 4, 8, 11, 16, 17, 23, 24, 32, 33, 64)
 BATCHES = (1, 1000, 4096, 4097)
 # float32 on both sides, other operation order: a few ulps of the scale
 BOUND = 2e-5
-# the general kernel: float64 at any n, float32 with n > 64
-GENERAL_F64_SIZES = (1, 7, 23, 35, 50, 64, 65, 72, 128, 169, 170, 200)
+# the general kernel: float64 at any n, float32 with n > 64 through the
+# dispatch, and float32 at any n through spd_solve_general_cuda itself
+GENERAL_F64_SIZES = (1, 7, 8, 9, 16, 17, 23, 24, 25, 32, 33, 35, 48, 49, 50,
+                     64, 65, 72, 128, 168, 169, 170, 200)
 GENERAL_F32_SIZES = (65, 72, 128, 239, 240, 241, 256)
-GENERAL_BATCHES = (1, 16, 4097)
+GENERAL_F32_DIRECT_SIZES = (1, 23, 35, 50, 64)
+GENERAL_BATCHES = (1, 16, 4096, 4097)
 # relative to the scale, as BOUND: a few ulps of each type
 GENERAL_BOUND = {torch.float32: 2e-5, torch.float64: 1e-12}
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -48,15 +54,27 @@ def _spd(n: int, batch: int, seed: int, dtype=np.float32):
   return a.astype(dtype), rng.normal(size=(batch, n)).astype(dtype)
 
 
+def _spd_on_card(n: int, batch: int, seed: int, dtype):
+  """As ``_spd``, made on the card (the large general batches)."""
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  r = torch.randn(batch, n, n, generator=g, dtype=torch.float64,
+                  device="cuda")
+  a = r @ r.transpose(1, 2) / n + torch.eye(n, dtype=torch.float64,
+                                            device="cuda")
+  b = torch.randn(batch, n, generator=g, dtype=torch.float64, device="cuda")
+  return a.to(dtype), b.to(dtype)
+
+
 def _check_against_plain(ac: torch.Tensor, bc: torch.Tensor,
                          counter=cuda_linalg.spd_solve_cuda,
-                         bound: float = BOUND):
-  """Both calls (with and without the factor) launch ``counter``'s kernel
-  once each and agree with the plain version."""
+                         bound: float = BOUND,
+                         fn=cuda_linalg.spd_solve_cuda):
+  """Both calls of ``fn`` (with and without the factor) launch
+  ``counter``'s kernel once each and agree with the plain version."""
   counters = (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda)
   before = [c.launches for c in counters]
-  x, L = cuda_linalg.spd_solve_cuda(ac, bc, factor=True)
-  x_only = cuda_linalg.spd_solve_cuda(ac, bc)
+  x, L = fn(ac, bc, factor=True)
+  x_only = fn(ac, bc)
   xp, Lp = linalg.spd_solve_plain(ac, bc, factor=True)
   torch.cuda.synchronize()
   assert [c.launches - n for c, n in zip(counters, before)] == [
@@ -132,12 +150,104 @@ def test_kernel_rejects_what_it_does_not_take():
 def test_general_kernel_matches_plain_on_card(dtype, n, batch):
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-  np_dtype = np.float64 if dtype == torch.float64 else np.float32
-  a, b = _spd(n, batch, seed=n * 10_000 + batch + 7, dtype=np_dtype)
-  _check_against_plain(torch.as_tensor(a, device="cuda"),
-                       torch.as_tensor(b, device="cuda"),
-                       cuda_linalg.spd_solve_general_cuda,
+  a, b = _spd_on_card(n, batch, n * 10_000 + batch + 7, dtype)
+  _check_against_plain(a, b, cuda_linalg.spd_solve_general_cuda,
                        GENERAL_BOUND[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", GENERAL_BATCHES)
+@pytest.mark.parametrize("n", GENERAL_F32_DIRECT_SIZES)
+def test_general_kernel_float32_direct_on_card(n, batch):
+  """Float32 with n <= 64 through spd_solve_general_cuda itself (the
+  dispatch sends it to the register kernel): the shared-tile route."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  a, b = _spd_on_card(n, batch, n * 10_000 + batch + 9, torch.float32)
+  _check_against_plain(a, b, cuda_linalg.spd_solve_general_cuda,
+                       GENERAL_BOUND[torch.float32],
+                       cuda_linalg.spd_solve_general_cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, n", [
+    (torch.float64, 23), (torch.float64, 24), (torch.float64, 64),
+    (torch.float64, 72), (torch.float32, 72)],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_general_kernel_on_misaligned_view(dtype, n):
+  """A contiguous view one element past a 16-byte boundary: the register
+  route's plain loads (no bulk copy), the shared tile's cp.async."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  batch = 4096
+  a, b = _spd_on_card(n, batch, n + 3, dtype)
+  big = torch.empty(batch * n * n + 1, dtype=dtype, device="cuda")
+  ac = big[1:].view(batch, n, n)
+  ac.copy_(a)
+  assert ac.is_contiguous() and ac.data_ptr() % 16 != 0
+  _check_against_plain(ac, b, cuda_linalg.spd_solve_general_cuda,
+                       GENERAL_BOUND[dtype])
+
+
+def clamp_systems(n: int, dtype, seed: int = 0):
+  """Systems whose factor meets the clamp: an SPD background with a
+  decoupled block at p (first, middle, last) that is (0) a zero row and
+  column, a pivot of exactly 0; (1) the same with a diagonal of -2^-20, a
+  pivot below tiny; (2) [[4, 2], [2, 1]], rank-deficient PSD, a pivot that
+  reaches 0; (3) [[4, 2], [2, 1 - 2^-20]], slightly indefinite, a pivot
+  that reaches -2^-20. Every operation on the blocks is exact, so every
+  version meets the same pivots; x is finite in (1) and (3), NaN or
+  infinite in (0) and (2). Returns numpy a, b and, per system, the clamped
+  pivot's index and a_jj there."""
+  rng = np.random.default_rng(seed)
+  blocks = ([[0.0]], [[-2.0 ** -20]], [[4.0, 2.0], [2.0, 1.0]],
+            [[4.0, 2.0], [2.0, 1.0 - 2.0 ** -20]])
+  mats, piv = [], []
+  for kind, blk in enumerate(blocks):
+    size = len(blk)
+    for p in sorted({0, (n - size) // 2, n - size}) if n >= size else ():
+      r = rng.normal(size=(n, n))
+      a = r @ r.T / n + np.eye(n)
+      a[p:p + size, :] = 0.0
+      a[:, p:p + size] = 0.0
+      a[p:p + size, p:p + size] = blk
+      mats.append(a)
+      piv.append((p + size - 1, 0.0 if kind in (0, 2) else -2.0 ** -20))
+  b = rng.normal(size=(len(mats), n))
+  return np.stack(mats).astype(dtype), b.astype(dtype), piv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, n", [
+    *((torch.float64, n) for n in (1, 2, 8, 9, 23, 24, 64, 65, 72, 169)),
+    *((torch.float32, n) for n in (2, 35, 65, 72, 241))],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_general_kernel_clamp_cases(dtype, n):
+  """The pivot clamp at finfo(dtype).tiny with L_jj = a_jj / sqrt(tiny):
+  x NaN and infinite where the plain version's is, and close elsewhere
+  (each system at its own scale); x equal with and without the factor."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  np_dtype = np.float64 if dtype == torch.float64 else np.float32
+  a, b, _ = clamp_systems(n, np_dtype, seed=n)
+  a, b = torch.as_tensor(a, device="cuda"), torch.as_tensor(b, device="cuda")
+  x, L = cuda_linalg.spd_solve_general_cuda(a, b, factor=True)
+  x_only = cuda_linalg.spd_solve_general_cuda(a, b)
+  xp, Lp = linalg.spd_solve_plain(a, b, factor=True)
+  torch.cuda.synchronize()
+  assert torch.equal(x.nan_to_num(), x_only.nan_to_num())
+  assert torch.equal(x.isnan(), x_only.isnan())
+  bound = GENERAL_BOUND[dtype]
+  for k, p in ((x, xp), (L, Lp)):
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(k), np.isnan(p))
+    np.testing.assert_array_equal(np.isposinf(k), np.isposinf(p))
+    np.testing.assert_array_equal(np.isneginf(k), np.isneginf(p))
+    for s in range(len(p)):
+      fin = np.isfinite(p[s])
+      if fin.any():
+        np.testing.assert_allclose(k[s][fin], p[s][fin], rtol=0,
+                                   atol=bound * np.abs(p[s][fin]).max())
 
 
 @pytest.mark.gpu
@@ -147,8 +257,8 @@ def test_general_kernel_shared_memory_limit():
     pytest.skip("needs a CUDA card")
   n64 = cuda_linalg.general_max_shared_n(torch.float64)
   n32 = cuda_linalg.general_max_shared_n(torch.float32)
-  assert min(GENERAL_F64_SIZES) <= n64 < max(GENERAL_F64_SIZES)
-  assert 64 < n32 < max(GENERAL_F32_SIZES)
+  assert n64 in GENERAL_F64_SIZES and n64 + 1 in GENERAL_F64_SIZES
+  assert n32 in GENERAL_F32_SIZES and n32 + 1 in GENERAL_F32_SIZES
 
 
 @pytest.mark.gpu

@@ -8,7 +8,10 @@ import jax
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
+from test_torch_kernel_gpu import clamp_systems
 from torch_parity import (assert_close, jax_batch, jax_model, port_batch,
                           port_model, random_states, to_np)
 from myosuite_mjx_tpu.ops import linalg as jlinalg
@@ -25,7 +28,15 @@ def _spd(n: int, batch: int, seed: int, dtype=np.float64):
   return a.astype(dtype), b.astype(dtype)
 
 
-@pytest.mark.parametrize("n", [1, 4, 9, 23])
+def _jax_unrolled(a, b):
+  """JAX's unrolled route (chol_factor, cho_solve) under vmap: (x, L)."""
+  x = jax.vmap(lambda ai, bi: jlinalg.cho_solve(jlinalg.chol_factor(ai),
+                                                bi))(a, b)
+  return np.asarray(x), np.asarray(jax.vmap(jlinalg.chol_factor)(a))
+
+
+@pytest.mark.parametrize("n", [1, 4, 8, 9, 16, 17, 23, 24, 25, 32, 33, 48, 49,
+                               64, 65, 72])
 def test_plain_matches_jax_unrolled_float64(n):
   a, b = _spd(n, 64, seed=n)
   ref = jax.vmap(jlinalg.spd_solve)(a, b)
@@ -34,6 +45,72 @@ def test_plain_matches_jax_unrolled_float64(n):
   assert_close(x, ref, rtol=1e-12, atol=1e-13, what="x")
   assert_close(L, jax.vmap(jlinalg.chol_factor)(a), rtol=1e-12, atol=1e-13,
                what="L")
+
+
+@pytest.mark.parametrize("n", [65, 72])
+def test_plain_matches_jax_unrolled_float32(n):
+  """Above the Pallas gate (n > 64) JAX takes the unrolled route in float32
+  too, as the general kernel's shared-tile route does."""
+  a, b = _spd(n, 32, seed=200 + n, dtype=np.float32)
+  ref, ref_L = _jax_unrolled(a, b)
+  x, L = linalg.spd_solve(torch.as_tensor(a), torch.as_tensor(b), factor=True)
+  assert x.dtype == torch.float32
+  # the same operations in the same order; XLA may contract a multiply and
+  # a subtraction that PyTorch rounds apart: a few ulps of the scale
+  assert_close(x, ref, rtol=0, atol=2e-5 * np.abs(ref).max(), what="x")
+  assert_close(L, ref_L, rtol=0, atol=2e-5 * np.abs(ref_L).max(), what="L")
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("n", [1, 2, 8, 23])
+def test_clamp_matches_jax(n, dtype):
+  """Pivots that reach 0 (rank-deficient PSD) or go below tiny (slightly
+  indefinite): L_jj = a_jj / sqrt(tiny) there, as JAX's chol_factor; x the
+  same, NaN and infinite where JAX's is."""
+  a, b, piv = clamp_systems(n, dtype, seed=n)
+  ref, ref_L = _jax_unrolled(a, b)
+  x, L = linalg.spd_solve(torch.as_tensor(a), torch.as_tensor(b), factor=True)
+  x, L = x.numpy(), L.numpy()
+  root_tiny = np.sqrt(np.finfo(dtype).tiny)
+  for s, (j, ajj) in enumerate(piv):
+    assert L[s, j, j] == ref_L[s, j, j] == np.asarray(ajj / root_tiny, dtype)
+  np.testing.assert_array_equal(np.isnan(x), np.isnan(ref))
+  np.testing.assert_array_equal(np.isposinf(x), np.isposinf(ref))
+  np.testing.assert_array_equal(np.isneginf(x), np.isneginf(ref))
+  assert np.isfinite(ref).any() and not np.isfinite(ref).all()
+  bound = 1e-12 if dtype == np.float64 else 2e-5
+  for s in range(len(a)):  # each system against its own scale
+    fin = np.isfinite(ref[s])
+    if fin.any():
+      np.testing.assert_allclose(x[s][fin], ref[s][fin], rtol=0,
+                                 atol=bound * np.abs(ref[s][fin]).max())
+    np.testing.assert_allclose(L[s], ref_L[s], rtol=0,
+                               atol=bound * np.abs(ref_L[s]).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@settings(max_examples=30, deadline=None)
+@given(n=st.integers(1, 40), pad=st.integers(0, 24),
+       seed=st.integers(0, 2 ** 31 - 1))
+def test_identity_padding_changes_nothing(dtype, n, pad, seed):
+  """Padding a system to n + pad with the identity (as the general kernel's
+  register route pads to NP) leaves x and the leading n x n block of L
+  exactly as they were; the padding's x is 0 and its factor the identity."""
+  a, b = _spd(n, 3, seed)
+  a, b = torch.as_tensor(a, dtype=dtype), torch.as_tensor(b, dtype=dtype)
+  m = n + pad
+  ap = torch.eye(m, dtype=dtype).repeat(3, 1, 1)
+  ap[:, :n, :n] = a
+  bp = torch.zeros(3, m, dtype=dtype)
+  bp[:, :n] = b
+  x, L = linalg.spd_solve_plain(a, b, factor=True)
+  xp, Lp = linalg.spd_solve_plain(ap, bp, factor=True)
+  assert torch.equal(xp[:, :n], x) and torch.equal(Lp[:, :n, :n], L)
+  assert torch.equal(xp[:, n:], torch.zeros(3, pad, dtype=dtype))
+  assert torch.equal(Lp[:, n:, n:], torch.eye(pad, dtype=dtype).repeat(3, 1, 1))
+  assert torch.equal(Lp[:, n:, :n], torch.zeros(3, pad, n, dtype=dtype))
 
 
 @pytest.mark.parametrize("n,batch", [(4, 1), (4, 1025), (23, 1025)])

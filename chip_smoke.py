@@ -89,8 +89,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    did not reset lost its overlay or one that did kept it.
 
 10. CLI: ``python -m myosuite_mjx_tpu_torch.train.cli`` in process on
-   ``hand23ReachRandom-v0``: (a) one NPG iteration at the zoo run's width
-   (512 x 100) with a checkpoint; (b) SAC at the proof recipe's width (32
+   ``hand23ReachRandom-v0``: (a) one NPG iteration of the zoo run's 512
+   trajectories, the horizon cut to ``CLI_NPG_HORIZON`` (phase 6 runs the
+   whole 512 x 100), with a checkpoint; (b) SAC at the proof recipe's width (32
    envs x 8 updates; learning_starts 64 as in phase 8, the two set as
    ``SACConfig`` defaults since the CLI has no flags for them), 6
    iterations straight, and 3 with a checkpoint then ``--resume`` to 6
@@ -210,9 +211,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
    must reproduce the log exactly, ``examine_reference`` on
    track29CubesmallLift-v0) through its ``main(argv)``.
 
-Every (dtype, B, n) at which phases 4-17 launch a kernel must be among
-those phase 3 checked. Phases 9's and 13-17's CPU runs at B = 16 are
-computed in one worker process (``cpu_references_conditions``, then
+18. the rest of the port: (a) ``reflex_update`` (``agents/reflex.py``) on
+   the card in float32 against the port on the CPU in float64, on 4,096
+   seeded float32 sensor dicts, phase states and gain vectors: every flag
+   equal, stimulations within ``REFLEX_STIM_BOUND``; (b)
+   ``ReflexWalker.rollout`` on legs80_reflex, 512 walkers (each its own
+   gains) for 20 control ticks, printing pelvis height, x, footsteps,
+   physics-steps/s and SPD launches a tick, then 4 walkers for 5 ticks
+   against the CPU in float64 (phase 5's qpos and qvel bounds; their
+   launches are not counted as the path's); (c)
+   ``tools/tune_reflex.py`` for 2 generations of 128 walkers x 10 ticks
+   into a temporary directory, failing unless its fitness is finite and
+   the best never falls; (d) ``gym_make`` on hand23's pose id, one env for
+   5 steps and 4096 for 3, and the ``flax_cnn`` encoder on 64 frames of
+   84 x 84, card float32 against CPU float64 (``CNN_BOUND``); (e) the CLI's
+   ``--mesh data`` at world size 1 on NCCL (one group for both), one NPG
+   and one PPO iteration of 32 envs (the horizon cut to 5; PPO 2 epochs of
+   2 minibatches), each failing unless it launched the SPD kernel, and
+   each state against the unsharded learner's from the same seed, run
+   outside the counted window (``MESH_BOUND``); (f)
+   ``tools/train_zoo_baseline.py`` for one PPO iteration into a temporary
+   zoo, its snapshot loaded and acting on the card, and
+   ``tools/convergence_study.py`` on the hold scene at B = 512 for 5
+   substeps.
+
+Every (dtype, B, n) at which phases 4-18 launch a kernel must be among
+those phase 3 checked. Phases 9's and 13-18's CPU runs are computed in
+one worker process (``cpu_references_conditions``, then
 ``cpu_references``), started after phase 2 and joined at phases 9 and 13,
 while the card runs the phases before them.
 
@@ -223,12 +248,14 @@ last line is
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import functools
 import io
 import json
 import multiprocessing
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -256,9 +283,10 @@ SIZES = (1, 4, 7, 8, 10, 11, 16, 17, 22, 23, 24, 25, 29, 32, 33, 35, 36,
 # the batches the paths launch the kernel at: the card side of phases 5 and
 # 7, the NPG eval, the PPO rollout, the NPG rollout and the main path
 PATH_BATCHES = (16, 32, 128, 512, B_MAIN)
-# those, one system (NPG's init reset), whole blocks (bulk-copy load) and a
-# ragged last block (plain load)
-BATCHES = (1, *PATH_BATCHES, 1000, 4097)
+# those, one system (NPG's init reset), phase 18b's four walkers against
+# the CPU, whole blocks (bulk-copy load) and a ragged last block (plain
+# load)
+BATCHES = (1, 4, *PATH_BATCHES, 1000, 4097)
 # kernel vs plain, float32 both: relative to the largest |x|. Random SPD
 # batches have eigenvalues >= 1, so a few ulps of float32 suffice.
 RANDOM_BOUND = 2e-5
@@ -340,6 +368,10 @@ FLOAT32_MARGIN = 20
 # straight for CLI_SAC_ITERS iterations and in two legs split at
 # CLI_SAC_SPLIT
 CLI_ENV = "hand23ReachRandom-v0"
+# (a) NPG at the zoo run's 512 trajectories, the horizon cut from 100 (PR
+# 13: the whole command neared its time limit on a slow host; phase 6
+# runs the whole horizon)
+CLI_NPG_HORIZON = 50
 CLI_SAC_ITERS = 6
 CLI_SAC_SPLIT = 3
 # phase 11: prove_sac's length (8 iterations and one eval; 12 until PR 9,
@@ -394,8 +426,8 @@ MANIP_OBJECT = {"hand23KeyTurnRandom-v0": "key",
                 "hand23ObjHoldRandom-v0": "object",
                 "hand23PenTwirlRandom-v0": "Object",
                 "hand23DieReorientP1-v0": "die"}
-# (6 keeps the whole command under 1,000 s with phase 17)
-MANIP_STEPS = 6
+# (5 keeps the whole command under 1,000 s with phases 17 and 18)
+MANIP_STEPS = 5
 # 13d: the CLI's SAC at the proof recipe's width on the hold task
 MANIP_TRAIN_ENV = "hand23ObjHoldRandom-v0"
 MANIP_SAC_ITERS = 6
@@ -453,8 +485,8 @@ HULLS_WINDOW = 120
 HULLS_REST = 0.05
 HAND_ARM_TASKS = ("hand23BaodingP2-v1", "arm27RelocateP2-v0",
                   "arm27Bimanual-v0", "hand23Reorient100-v0")
-# (6 keeps the whole command under 1,000 s with phase 17)
-HAND_ARM_STEPS = 6
+# (5 keeps the whole command under 1,000 s with phases 17 and 18)
+HAND_ARM_STEPS = 5
 PROFILE_ARM_ENV = "arm27RelocateP2-v0"
 # phase 16: the OSL RunTrack and MyoDM tracking tasks. 16a holds the OSL
 # machine on the card (float32) against the port's float64 on the CPU on
@@ -530,6 +562,54 @@ IK_QPOS_BOUND = 1e-6
 EXAMINE_ENV = "hand23PoseFixed-v0"
 EXAMINE_ROLLOUT_ENV = "track29CubesmallFixed-v0"
 EXAMINE_TRACK = "track29CubesmallLift-v0"
+
+# phase 18: the reflex walker, its tuner, the gym adapter, the CNN
+# encoder, the data-parallel learners and the tools. (a) reflex_update on
+# seeded float32 inputs, card float32 against CPU float64 (the same
+# inputs and control parameters): the flags equal, the stimulations in
+# [0.01, 1] within a few float32 ulps
+REFLEX_SAMPLES = 4096
+REFLEX_STIM_BOUND = 1e-5
+# (b) walkers at B = 512 for REFLEX_TICKS control ticks (5 substeps each);
+# 4 walkers, each its own gains, for REFLEX_CPU_TICKS against the CPU
+# (float64, in the worker) within phase 5's bounds on qpos and qvel
+REFLEX_WALKERS = 512
+REFLEX_TICKS = 20
+REFLEX_CPU_WALKERS = 4
+REFLEX_CPU_TICKS = 5
+# (c) the CEM tuner: 2 generations of 128 walkers, 10 ticks each
+TUNE_ARGS = ["--generations", "2", "--pop", "128", "--elite", "16",
+             "--ticks", "10"]
+# (d) the gym surface on hand23's pose id: one env for 5 steps, 4096 for
+# 3; the CNN encoder on 64 frames of 84 x 84, card float32 against CPU
+# float64 (relative to the largest feature)
+GYM_ENV = "hand23PoseFixed-v0"
+GYM_STEPS = 5
+GYM_VEC_STEPS = 3
+CNN_FRAMES = 64
+CNN_BOUND = 1e-5
+# (e) the CLI's --mesh data at world size 1 on NCCL: NPG and PPO, one
+# iteration each at 32 envs, the pose task's horizon cut to MESH_HORIZON
+# (and PPO's unroll with it; 2 epochs of 2 minibatches, so the minibatch
+# moments and the gradient all-reduce run 4 times); the sharded state
+# against the unsharded learner's from the same seed, the largest
+# parameter difference over the largest parameter change. One process
+# reduces its share with the plain learner's own calls, so the two are
+# one computation: the bound leaves room only for a kernel whose sum
+# order varies from run to run
+MESH_ENVS = 32
+MESH_HORIZON = 5
+MESH_PPO = dict(unroll_length=MESH_HORIZON, num_minibatches=2,
+                update_epochs=2)
+MESH_BOUND = 1e-6
+# (f) train_zoo_baseline: one PPO iteration of 16 envs x 5 steps;
+# convergence_study on the hold scene
+ZOO_ARGS = ["--env", GYM_ENV, "--algo", "ppo", "--total-steps", "80",
+            "--eval-every", "0", "--config",
+            '{"num_envs": 16, "unroll_length": 5, "data_groups": 1, '
+            '"num_minibatches": 4}']
+CONVERGENCE_ARGS = ["--env", "hand23ObjHoldRandom-v0", "--batch", "512",
+                    "--steps", "5"]
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s, and FLOP/s
 # outside the tensor cores in float32 and in float64, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1784,6 +1864,30 @@ def phase_conditions(phase4_rate: float, cpu_refs=None) -> dict:
   return {"conditions_launches": launches}
 
 
+def _zeroed(fn, *args):
+  """``fn(*args)`` and the register kernel's launches in it: the count is
+  set to 0 just before the call and read just after it."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  out = fn(*args)
+  torch.cuda.synchronize()
+  return out, cuda_linalg.spd_solve_cuda.launches
+
+
+@contextlib.contextmanager
+def _env_horizon(horizon: int):
+  """``envs.make`` with the task's horizon cut to ``horizon`` (the CLI
+  has no flag for it)."""
+  from myosuite_mjx_tpu_torch import envs
+  make = envs.make
+  envs.make = functools.partial(make, horizon=horizon)
+  try:
+    yield
+  finally:
+    envs.make = make
+
+
 def _cli(argv: list) -> dict:
   """``train.cli.main(argv)``; its JSON records, the returned state, the
   seconds and the SPD launches of the call."""
@@ -1832,13 +1936,15 @@ def phase_cli() -> dict:
   base = ["--env", CLI_ENV, "--device", DEVICE, "--log-every", "1"]
   with tempfile.TemporaryDirectory() as tmp:
     ck = lambda name, it: os.path.join(tmp, name, f"iter_{it:07d}")
-    npg_steps = NPG_ENVS * 100
-    npg = _cli(base + ["--algo", "npg", "--num-envs", str(NPG_ENVS),
-                       "--total-steps", str(npg_steps), "--checkpoint-dir",
-                       os.path.join(tmp, "npg"), "--logdir",
-                       os.path.join(tmp, "npg", "log")])
+    npg_steps = NPG_ENVS * CLI_NPG_HORIZON
+    with _env_horizon(CLI_NPG_HORIZON):
+      npg = _cli(base + ["--algo", "npg", "--num-envs", str(NPG_ENVS),
+                         "--total-steps", str(npg_steps), "--checkpoint-dir",
+                         os.path.join(tmp, "npg"), "--logdir",
+                         os.path.join(tmp, "npg", "log")])
     rec = npg["records"][-1]
-    _say(f"cli NPG {CLI_ENV}: {NPG_ENVS} x 100 = {npg_steps} env steps in "
+    _say(f"cli NPG {CLI_ENV}: {NPG_ENVS} x {CLI_NPG_HORIZON} = {npg_steps} "
+         f"env steps in "
          f"{rec['wall_s']:.3f} s of iteration ({npg_steps / rec['wall_s']:.1f}"
          f" env-steps/s, {10 * npg_steps / rec['wall_s']:.1f} "
          f"physics-steps/s); {npg['seconds']:.3f} s with the init and the "
@@ -2213,15 +2319,17 @@ def _hold_b16(task_id: str, refs: dict | None, label: str) -> None:
 
 
 def cpu_references() -> dict:
-  """Phases 13-17's CPU side (13b's and 15b's float64 runs, 13c's, 14c's,
-  15c's and 16b's float64 and float32 runs, 17a's and 17b's float64 runs).
+  """Phases 13-18's CPU side (13b's and 15b's float64 runs, 13c's, 14c's,
+  15c's and 16b's float64 and float32 runs, 17a's, 17b's and 18b's
+  float64 runs).
   ``main`` computes it in a worker process while the card runs the
   earlier phases."""
   torch.set_num_threads(2)
   out = {"prims": _prims_b16("cpu", torch.float64),
          "hulls": _hulls_b16("cpu", torch.float64),
          "pose_f64": _pose_b16("cpu", torch.float64),
-         "chain72": _chain_b16("cpu", torch.float64)}
+         "chain72": _chain_b16("cpu", torch.float64),
+         "reflex": _reflex_b4("cpu", torch.float64)}
   for task_id in MANIP_TASKS + LEG_TASKS + HAND_ARM_TASKS + OSL_TRACK_TASKS:
     for dtype in (torch.float64, torch.float32):
       out[task_id, dtype] = _task_b16(task_id, "cpu", dtype)
@@ -3368,6 +3476,357 @@ def phase_general_paths(cpu_refs=None) -> dict:
           "parts": parts, **out}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the reflex walker and its tuner, the gym adapter and the CNN
+# encoder, the data-parallel learners and the tools
+# ---------------------------------------------------------------------------
+
+
+def _reflex_inputs(n: int, seed: int = 0):
+  """Seeded float32 inputs of ``reflex_update``: control parameters
+  [n, 46] from params around 1, phase flags [n, 2] and a sensor dict
+  spread over every threshold of the phase logic."""
+  from myosuite_mjx_tpu_torch.agents import reflex
+  rng = np.random.default_rng(seed)
+  cp = reflex.expand_params(rng.uniform(-0.5, 2.5, (n, reflex.N_PARAMS)),
+                            torch.float32, "cpu")
+  flags = {f.name: torch.as_tensor(rng.random((n, 2)) < 0.5)
+           for f in dataclasses.fields(reflex.ReflexState)}
+  u = lambda lo, hi: torch.as_tensor(rng.uniform(lo, hi, (n, 2)),
+                                     dtype=torch.float32)
+  sens = {
+      "theta": u(-0.4, 0.4), "d_pos": u(-1.0, 2.0), "dtheta": u(-2.0, 2.0),
+      "load_ipsi": u(-0.1, 1.5), "alpha": u(0.8, 2.4),
+      "dalpha": u(-3.0, 3.0), "alpha_f": u(1.2, 2.0),
+      "phi_hip": u(2.0, 3.8), "phi_knee": u(1.6, 3.3),
+      "phi_ankle": u(1.0, 2.2), "dphi_knee": u(-5.0, 5.0),
+      "F_RF": u(-1.0, 0.2), "F_VAS": u(-1.0, 0.2), "F_GAS": u(-1.0, 0.2),
+      "F_SOL": u(-1.0, 0.2)}
+  sens["contact_ipsi"] = sens["load_ipsi"] > 0.1
+  sens["contact_contra"] = sens["contact_ipsi"].flip(-1)
+  sens["load_contra"] = sens["load_ipsi"].flip(-1)
+  return cp, flags, sens
+
+
+def phase_reflex_update() -> dict:
+  """18a: ``reflex_update`` on the card (float32) against the port on the
+  CPU (float64) on the same seeded float32 inputs."""
+  from myosuite_mjx_tpu_torch.agents import reflex
+  cp, flags, sens = _reflex_inputs(REFLEX_SAMPLES)
+  out = {}
+  for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+    st = reflex.ReflexState(**{k: v.to(device) for k, v in flags.items()})
+    new, stim = reflex.reflex_update(
+        cp.to(device, dtype), st,
+        {k: v.to(device) if v.dtype == torch.bool else v.to(device, dtype)
+         for k, v in sens.items()})
+    out[dtype] = ({f: getattr(new, f).cpu() for f in flags},
+                  stim.double().cpu())
+  card, ref = out[torch.float32], out[torch.float64]
+  same = sum(int((card[0][f] == ref[0][f]).all(-1).sum()) for f in flags)
+  err = float((card[1] - ref[1]).abs().max())
+  moved = sum(int((ref[0][f] != flags[f]).sum()) for f in flags)
+  ok = same == len(flags) * REFLEX_SAMPLES and err <= REFLEX_STIM_BOUND
+  _say(f"18a reflex_update B={REFLEX_SAMPLES}: card float32 vs cpu "
+       f"float64: flag rows equal {same} of {len(flags) * REFLEX_SAMPLES} "
+       f"({moved} flags moved), stim max abs err {err:.3e} (bound "
+       f"{REFLEX_STIM_BOUND:g}) {'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("18a: reflex_update disagrees between card and CPU")
+  return {"launches": 0}
+
+
+def _reflex_params(n: int, seed: int) -> np.ndarray:
+  """``n`` gain vectors around the nominal ones, as the tuner draws."""
+  rng = np.random.default_rng(seed)
+  return np.clip(1.0 + 0.15 * rng.standard_normal((n, 46)), -2.0, 4.0)
+
+
+def _reflex_b4(device, dtype) -> dict:
+  """REFLEX_CPU_WALKERS walkers, each its own gains, after
+  REFLEX_CPU_TICKS control ticks: qpos, qvel and the pelvis heights."""
+  from myosuite_mjx_tpu_torch.agents import reflex
+  walker = reflex.ReflexWalker(dtype=dtype)
+  d, traj = walker.rollout(REFLEX_CPU_TICKS,
+                           _reflex_params(REFLEX_CPU_WALKERS, 1),
+                           device=device)
+  return {"qpos": d.qpos.double().cpu().numpy(),
+          "qvel": d.qvel.double().cpu().numpy(),
+          "height": traj["height"].double().cpu().numpy()}
+
+
+def phase_reflex_walk(refs: dict | None = None) -> dict:
+  """18b: ``ReflexWalker.rollout`` of REFLEX_WALKERS walkers on
+  legs80_reflex, then REFLEX_CPU_WALKERS against the CPU; ``refs`` is
+  ``cpu_references()`` (computed here without it)."""
+  from myosuite_mjx_tpu_torch.agents import reflex
+  walker = reflex.ReflexWalker()
+  params = _reflex_params(REFLEX_WALKERS, 0)
+  t0 = time.perf_counter()
+  (d, traj), launches = _zeroed(
+      functools.partial(walker.rollout, device=DEVICE), REFLEX_TICKS, params)
+  seconds = time.perf_counter() - t0
+  h, x = traj["height"].cpu().numpy(), traj["x"].cpu().numpy()
+  steps = traj["footsteps"].cpu().numpy()
+  rate = REFLEX_TICKS * walker.substeps * REFLEX_WALKERS / seconds
+  _say(f"18b ReflexWalker legs80_reflex B={REFLEX_WALKERS}, {REFLEX_TICKS} "
+       f"ticks x {walker.substeps} substeps (reset included): "
+       f"{rate:,.1f} physics-steps/s, {seconds:.2f} s, SPD launches "
+       f"{launches} ({launches / REFLEX_TICKS:.1f} a tick); pelvis height "
+       f"median {float(np.median(h[0])):.4f} -> {float(np.median(h[-1])):.4f}"
+       f" m (min {float(h.min()):.4f}), x median {float(np.median(x[-1])):.4f}"
+       f" m, footsteps mean {float(steps.mean()):.2f} max {int(steps.max())}")
+  if not (torch.isfinite(d.qpos).all() and np.isfinite(h).all()):
+    raise AssertionError("18b: non-finite walker state")
+  card = _reflex_b4(DEVICE, torch.float32)
+  ref = refs["reflex"] if refs else _reflex_b4("cpu", torch.float64)
+  for f, bound in (("qpos", CARD_CPU_BOUND["qpos"]),
+                   ("qvel", CARD_CPU_BOUND["qvel"]),
+                   ("height", CARD_CPU_BOUND["qpos"])):
+    err = float(np.abs(card[f] - ref[f]).max())
+    ok = err <= bound and np.isfinite(card[f]).all()
+    _say(f"18b {REFLEX_CPU_WALKERS} walkers x {REFLEX_CPU_TICKS} ticks, "
+         f"card float32 vs cpu float64, {f}: max abs err {err:.3e} (bound "
+         f"{bound:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"18b: card and CPU walkers disagree on {f}")
+  return {"reflex_physics_steps_per_s": rate, "launches": launches}
+
+
+def phase_tune_reflex() -> dict:
+  """18c: the CEM tuner, TUNE_ARGS, into a temporary directory."""
+  from myosuite_mjx_tpu_torch.tools import tune_reflex
+  with tempfile.TemporaryDirectory() as tmp:
+    out_path = os.path.join(tmp, "gains.npz")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+      res, launches = _zeroed(tune_reflex.main, TUNE_ARGS + [
+          "--out", out_path, "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    written = (os.path.exists(out_path)
+               and os.path.exists(out_path.replace(".npz", "_history.json")))
+  hist = res["history"]
+  for rec in hist:
+    _say(f"  tune_reflex: {json.dumps(rec)}")
+  finite = all(np.isfinite([r["best"], r["elite_mean"], r["best_ever"]]).all()
+               for r in hist)
+  rising = all(b["best_ever"] >= a["best_ever"]
+               for a, b in zip(hist, hist[1:]))
+  ok = finite and rising and written and len(hist) == 2
+  _say(f"18c tune_reflex {' '.join(TUNE_ARGS)}: {seconds:.1f} s, best "
+       f"fitness {res['best']['fitness']:.4f} ({res['best']['t_alive']} "
+       f"ticks alive); finite {finite}, best never falls {rising}, outputs "
+       f"written {written} {'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("18c: the tuner's run is not as it must be")
+  return {"launches": launches}
+
+
+def phase_gym() -> dict:
+  """18d: ``gym_make`` for one env and for B_MAIN envs on the card, and
+  the CNN encoder, card float32 against CPU float64."""
+  from myosuite_mjx_tpu_torch import envs
+  from myosuite_mjx_tpu_torch.envs import gym_adapter, visual
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  rng = np.random.default_rng(0)
+  torch.cuda.synchronize()
+  cuda_linalg.spd_solve_cuda.launches = 0
+  env = envs.gym_make(GYM_ENV, seed=0, device=DEVICE)
+  spaces = gym_adapter.gym_spaces is not None
+  obs, _ = env.reset(seed=0)
+  nu = env.unwrapped_myo.action_dim
+  rewards = []
+  for _ in range(GYM_STEPS):
+    obs, r, term, trunc, info = env.step(rng.uniform(0.0, 1.0, nu))
+    rewards.append(r)
+    if not (isinstance(term, bool) and isinstance(trunc, bool)):
+      raise AssertionError("18d: GymEnv flags are not bools")
+  if not (np.isfinite(obs).all() and np.isfinite(rewards).all()):
+    raise AssertionError("18d: GymEnv gave non-finite output")
+  venv = envs.gym_make(GYM_ENV, seed=0, num_envs=B_MAIN, device=DEVICE)
+  vobs, _ = venv.reset()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(GYM_VEC_STEPS):
+    vobs, vrew, done, trunc, _ = venv.step(
+        rng.uniform(0.0, 1.0, (B_MAIN, nu)).astype(np.float32))
+  seconds = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  launches = cuda_linalg.spd_solve_cuda.launches
+  frame_skip = env.unwrapped_myo.frame_skip
+  rate = GYM_VEC_STEPS * frame_skip * B_MAIN / seconds
+  if not (vobs.shape == (B_MAIN, obs.shape[0]) and np.isfinite(vobs).all()
+          and np.isfinite(vrew).all() and done.dtype == bool):
+    raise AssertionError("18d: GymVecEnv gave a wrong or non-finite output")
+  _say(f"18d gym_make {GYM_ENV}: GymEnv {GYM_STEPS} steps, obs "
+       f"{obs.shape}, rewards {np.round(rewards, 4).tolist()}; GymVecEnv "
+       f"B={B_MAIN} {GYM_VEC_STEPS} steps (host numpy each step) "
+       f"{rate:,.1f} physics-steps/s; gymnasium spaces {spaces}")
+  frames = torch.as_tensor(rng.integers(0, 256, (CNN_FRAMES, 84, 84, 3),
+                                        dtype=np.uint8))
+  enc = visual.encoder("flax_cnn", 84, 84, device=DEVICE)
+  with torch.no_grad():
+    card = enc(frames.to(DEVICE)).double().cpu()
+    ref = copy.deepcopy(enc).to("cpu", torch.float64)(frames)
+  err = float((card - ref).abs().max() / ref.abs().max())
+  ok = card.shape == (CNN_FRAMES, 64) and err <= CNN_BOUND
+  _say(f"18d flax_cnn encoder {CNN_FRAMES} x 84 x 84: card float32 vs cpu "
+       f"float64 {err:.3e} of the largest feature (bound {CNN_BOUND:g}) "
+       f"{'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("18d: the CNN encoder disagrees between card and "
+                         "CPU")
+  return {"gym_vec_physics_steps_per_s": rate, "launches": launches}
+
+
+@contextlib.contextmanager
+def _mesh_run_settings():
+  """The pose task's horizon cut to MESH_HORIZON in ``envs.make`` and PPO
+  at MESH_PPO's settings (the CLI has no flags for them), and one
+  process's NCCL group configuration in the environment; the group the
+  first CLI run makes serves every run inside, and is destroyed at the
+  end."""
+  from myosuite_mjx_tpu_torch.train import ppo
+  import torch.distributed as dist
+  cfg = ppo.PPOConfig
+  with socket.socket() as sk:
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+  env_vars = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+              "WORLD_SIZE": "1", "RANK": "0"}
+  saved = {k: os.environ.get(k) for k in env_vars}
+  ppo.PPOConfig = functools.partial(cfg, **MESH_PPO)
+  os.environ.update(env_vars)
+  try:
+    with _env_horizon(MESH_HORIZON):
+      yield
+  finally:
+    ppo.PPOConfig = cfg
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+    if dist.is_initialized():
+      dist.destroy_process_group()
+
+
+def phase_mesh() -> dict:
+  """18e: the CLI's --mesh data (NPG, then PPO) at world size 1 on NCCL,
+  each run's launches counted alone, and each state against the
+  unsharded learner's one iteration (run after the count is read)."""
+  from myosuite_mjx_tpu_torch import envs
+  from myosuite_mjx_tpu_torch.tools.scaling_efficiency import flat_params
+  from myosuite_mjx_tpu_torch.train import npg, ppo
+  import torch.distributed as dist
+  out = {"launches": 0}
+  with _mesh_run_settings():
+    for algo in ("npg", "ppo"):
+      per_iter = MESH_ENVS * MESH_HORIZON
+      res, launches = _zeroed(_cli, [
+          "--env", GYM_ENV, "--algo", algo, "--num-envs", str(MESH_ENVS),
+          "--total-steps", str(per_iter), "--mesh", "data", "--log-every",
+          "1", "--device", DEVICE])
+      out["launches"] += launches
+      backend = dist.get_backend() if dist.is_initialized() else None
+      world = dist.get_world_size() if dist.is_initialized() else 0
+      env = envs.make(GYM_ENV)
+      learner = (npg.NPG(env, npg.NPGConfig(num_envs=MESH_ENVS), DEVICE)
+                 if algo == "npg" else
+                 ppo.PPO(env, ppo.PPOConfig(num_envs=MESH_ENVS), DEVICE))
+      g = torch.Generator(device=DEVICE).manual_seed(0)
+      ts = learner.init(generator=g)
+      before = flat_params(ts).clone()
+      ts, _ = learner.train_step(ts, g)
+      plain, sharded = flat_params(ts), flat_params(res["state"])
+      change = float((plain - before).abs().max())
+      err = float((sharded - plain).abs().max()) / max(change, 1e-30)
+      rec = res["records"][-1] if res["records"] else {}
+      expected = "nccl" if DEVICE == "cuda" else "gloo"
+      ok = (backend == expected and world == 1 and len(res["records"]) == 1
+            and rec.get("env_steps") == per_iter and change > 0
+            and launches > 0 and err <= MESH_BOUND
+            and all(np.isfinite(v) for v in rec.values()))
+      _say(f"18e cli --mesh data --algo {algo}: {backend} world {world}, "
+           f"{MESH_ENVS} envs x {MESH_HORIZON} steps, {res['seconds']:.1f} "
+           f"s (init included), SPD launches {launches}; sharded vs "
+           f"unsharded state: "
+           f"{err:.3e} of the largest parameter change {change:.3e} (bound "
+           f"{MESH_BOUND:g}) {'ok' if ok else 'FAIL'}")
+      if not ok:
+        raise AssertionError(f"18e: --mesh data {algo} did not launch the "
+                             f"SPD kernel, or is not the unsharded step")
+      out[f"mesh_{algo}_env_steps_per_s"] = per_iter / res["seconds"]
+  return out
+
+
+def phase_tools() -> dict:
+  """18f: train_zoo_baseline into a temporary zoo, its snapshot loaded
+  and acting on the card; then convergence_study on the hold scene."""
+  from myosuite_mjx_tpu_torch.tools import convergence_study
+  from myosuite_mjx_tpu_torch.tools import train_zoo_baseline
+  from myosuite_mjx_tpu_torch.train import zoo
+  log = io.StringIO()
+  with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+      path, zoo_launches = _zeroed(train_zoo_baseline.main, ZOO_ARGS + [
+          "--zoo-dir", tmp, "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    with open(path[:-4] + "_metrics.json") as f:
+      history = json.load(f)["history"]
+    policy = zoo.load_policy(path, device=DEVICE)
+    act = policy(torch.zeros((16, policy.net.pi[0].in_features),
+                             device=DEVICE))
+  ok = (len(history) == 1 and act.shape == (16, 39) and zoo_launches > 0
+        and bool(torch.isfinite(act).all()))
+  _say(f"18f train_zoo_baseline {' '.join(ZOO_ARGS)}: {seconds:.1f} s, "
+       f"SPD launches {zoo_launches}, "
+       f"metrics {json.dumps(history[-1])}, the snapshot acts on the card "
+       f"{'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("18f: the zoo tool's snapshot is not as it must be")
+  log = io.StringIO()
+  t0 = time.perf_counter()
+  with contextlib.redirect_stdout(log):
+    it, study_launches = _zeroed(convergence_study.main, CONVERGENCE_ARGS
+                                 + ["--device", DEVICE])
+  seconds = time.perf_counter() - t0
+  for ln in log.getvalue().splitlines():
+    _say(f"  convergence_study: {ln}")
+  ok = it.shape == (5, 512) and 1 <= it.max() <= 100 and study_launches > 0
+  _say(f"18f convergence_study {' '.join(CONVERGENCE_ARGS)}: {seconds:.1f} "
+       f"s, SPD launches {study_launches} {'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError("18f: the convergence study's iterations are off, "
+                         "or it never launched the SPD kernel")
+  return {"launches": zoo_launches + study_launches}
+
+
+def phase_rest_of_port(cpu_refs=None) -> dict:
+  """Phase 18. Each part sets the register kernel's count to 0 just
+  before each run of its path and reads it just after, and returns the
+  sum as ``launches``; its comparisons run outside those windows (18a
+  launches none: it is the controller alone). ``cpu_refs`` is a future of
+  ``cpu_references()``."""
+  refs = cpu_refs.result() if cpu_refs is not None else None
+  parts, out = {}, {}
+  for part, fn, args in (("a", phase_reflex_update, ()),
+                         ("b", phase_reflex_walk, (refs,)),
+                         ("c", phase_tune_reflex, ()), ("d", phase_gym, ()),
+                         ("e", phase_mesh, ()), ("f", phase_tools, ())):
+    t0 = time.perf_counter()
+    rec = fn(*args)
+    parts[part] = rec.pop("launches")
+    out.update(rec)
+    _say(f"phase 18{part}: {time.perf_counter() - t0:.1f} s, SPD launches "
+         f"on its path {parts[part]}")
+    if part != "a" and parts[part] <= 0:
+      raise AssertionError(f"phase 18{part} never launched the SPD kernel")
+  return {"launches": sum(parts.values()), "parts": parts, **out}
+
+
 @contextlib.contextmanager
 def _launch_shapes(shapes: set):
   """Record the (dtype, B, n) of every ``linalg.spd_solve`` call on the card
@@ -3445,15 +3904,16 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
                              main_path["physics_steps_per_s"], cpu_refs)
     general_4_16 = cuda_linalg.spd_solve_general_cuda.launches
     general_path = _timed_phase(17, phase_general_paths, cpu_refs)
+    rest = _timed_phase(18, phase_rest_of_port, cpu_refs)
   unchecked = shapes - _checked_shapes()
-  _say(f"spd_solve (dtype, B, n) launched in phases 4-17: {sorted(shapes)}; "
+  _say(f"spd_solve (dtype, B, n) launched in phases 4-18: {sorted(shapes)}; "
        f"not held against the plain version in phase 3: "
        f"{sorted(unchecked)}; general kernel launches in phases 4-16 "
        f"{general_4_16}")
   if not shapes or unchecked:
     raise AssertionError(f"no shape recorded, or shapes {sorted(unchecked)} "
                          f"never checked")
-  _say(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+  _say(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s")
   _say(smi)
   general = kernels["spd_solve_general"]
   _say(json.dumps({"kernels": [{
@@ -3464,6 +3924,7 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
       **cli_run, **proof, "physics_launches": physics["physics_launches"],
       **contact, **legs, **hand_arm, **osl_track,
       "phase17_launches": general_path["register_launches"],
+      **{f"phase18{k}_launches": v for k, v in rest["parts"].items()},
       **kernels["spd_solve"]}, {
       "name": "spd_solve_general", "route": "cuda",
       "source": "myosuite_mjx_tpu_torch/csrc/spd_solve_general.cu",

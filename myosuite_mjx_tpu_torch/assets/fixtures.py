@@ -609,18 +609,58 @@ _LEG_MUSCLES = (
 )
 
 
-def _leg_muscles(side: str, count: int) -> tuple[dict, str, str]:
-  """``count`` muscles of one leg from the templates: their sites per body
-  (name -> MJCF), the spatial tendons and the actuators. The k-th use of
-  a template shifts every site by a few millimetres so that no two
-  muscles share a path."""
+# MyoLeg's 40 muscle names per side (what the reflex controller looks up
+# as ``<name>_<r|l>``), each with the ``_LEG_MUSCLES`` template whose path
+# does its job: adductors on addlong's, hamstrings and bfsh on bflh's, the
+# abductors and tfl on glmed's, and so on
+REFLEX_MUSCLES = (
+    ("addbrev", "addlong"), ("addlong", "addlong"),
+    ("addmagDist", "addlong"), ("addmagIsch", "addlong"),
+    ("addmagMid", "addlong"), ("addmagProx", "addlong"), ("bflh", "bflh"),
+    ("bfsh", "bflh"), ("edl", "edl"), ("ehl", "edl"), ("fdl", "fdl"),
+    ("fhl", "fdl"), ("gaslat", "gastroc"), ("gasmed", "gastroc"),
+    ("glmax1", "glmax"), ("glmax2", "glmax"), ("glmax3", "glmax"),
+    ("glmed1", "glmed"), ("glmed2", "glmed"), ("glmed3", "glmed"),
+    ("glmin1", "glmed"), ("glmin2", "glmed"), ("glmin3", "glmed"),
+    ("grac", "addlong"), ("iliacus", "iliacus"), ("perbrev", "perlong"),
+    ("perlong", "perlong"), ("piri", "piri"), ("psoas", "iliacus"),
+    ("recfem", "recfem"), ("sart", "sart"), ("semimem", "bflh"),
+    ("semiten", "bflh"), ("soleus", "soleus"), ("tfl", "glmed"),
+    ("tibant", "tibant"), ("tibpost", "tibpost"), ("vasint", "vasint"),
+    ("vaslat", "vasint"), ("vasmed", "vasint"),
+)
+
+
+def _muscle_templates(count: int, names: tuple | None):
+  """(muscle name without side, template, k) per muscle: the k-th use of
+  a template. Without ``names``, the templates in turn, named
+  ``<template><k + 1>``; with ``names`` ((name, template) pairs), those."""
+  by_name = {t[0]: t for t in _LEG_MUSCLES}
+  if names is None:
+    n = len(_LEG_MUSCLES)
+    return [(f"{_LEG_MUSCLES[i % n][0]}{i // n + 1}", _LEG_MUSCLES[i % n],
+             i // n) for i in range(count)]
+  uses: dict[str, int] = {}
+  out = []
+  for name, template in names:
+    k = uses.get(template, 0)
+    uses[template] = k + 1
+    out.append((name, by_name[template], k))
+  return out
+
+
+def _leg_muscles(side: str, count: int,
+                 names: tuple | None = None) -> tuple[dict, str, str]:
+  """``count`` muscles of one leg from the templates (or the muscles of
+  ``names``, see ``_muscle_templates``): their sites per body (name ->
+  MJCF), the spatial tendons and the actuators. The k-th use of a
+  template shifts every site by a few millimetres so that no two muscles
+  share a path."""
   mirror = 1.0 if side == "l" else -1.0
   sites: dict[str, list[str]] = {}
   tendons, actuators = [], []
-  for i in range(count):
-    name, force, path = _LEG_MUSCLES[i % len(_LEG_MUSCLES)]
-    k = i // len(_LEG_MUSCLES)
-    mname = f"{name}{k + 1}_{side}"
+  for base, (_, force, path), k in _muscle_templates(count, names):
+    mname = f"{base}_{side}"
     shift = (0.004 * k, 0.003 * k * (-1) ** k, -0.005 * k)
     parts = []
     for j, point in enumerate(path):
@@ -719,7 +759,8 @@ _LEG_KEYS = (
 )
 
 
-def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False) -> str:
+def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False,
+                     reflex: bool = False) -> str:
   """MJCF text of the synthetic two-leg scene, MyoLeg's names and width.
 
   - ``pelvis`` on a free joint (a ``pelvis`` site at its origin) with the
@@ -742,19 +783,26 @@ def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False) -> str:
     ``l_foot`` and ``l_toes`` on sites of those names;
   - keyframes: standing, a slight crouch, and two mid-stride poses (keys 2
     and 3, the walk's random reset);
-  - ``chasetag``: one mocap body ``opponent`` that collides with nothing.
+  - ``chasetag``: one mocap body ``opponent`` that collides with nothing;
+  - ``reflex`` (legs80_reflex): the 40 muscles per side take MyoLeg's
+    names (``REFLEX_MUSCLES``, on the templates' paths), so the reflex
+    controller (``agents/reflex.py``) finds its muscle groups.
   """
+  names = REFLEX_MUSCLES if reflex else None
+  if reflex:
+    muscles_per_leg = len(REFLEX_MUSCLES)
   if muscles_per_leg < 1:
     raise ValueError(f"muscles_per_leg must be positive, got "
                      f"{muscles_per_leg}")
   legs, tendons, actuators = [], [], []
   for side in ("l", "r"):
-    sites, ten, act = _leg_muscles(side, muscles_per_leg)
+    sites, ten, act = _leg_muscles(side, muscles_per_leg, names)
     legs.append(_leg(side, sites))
     tendons.append(ten)
     actuators.append(act)
   pelvis_sites = "".join(
-      _leg_muscles(s, muscles_per_leg)[0].get("pelvis", "") for s in "lr")
+      _leg_muscles(s, muscles_per_leg, names)[0].get("pelvis", "")
+      for s in "lr")
   hip_parts = "".join(
       f"""
       <geom name="hip_wrap_{s}" type="sphere" pos="{_f(_LEG_HIP[0], m * _LEG_HIP[1], _LEG_HIP[2])}" size="0.035" contype="0" conaffinity="0"/>
@@ -770,7 +818,8 @@ def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False) -> str:
   equalities = "\n    ".join(
       f'<joint joint1="knee_angle_translation_{s}" joint2="knee_angle_{s}" '
       f'polycoef="{_f(*KNEE_POLYCOEF)}"/>' for s in "lr")
-  name = f"legs{2 * muscles_per_leg}" + ("_chasetag" if chasetag else "")
+  name = (f"legs{2 * muscles_per_leg}" + ("_chasetag" if chasetag else "")
+          + ("_reflex" if reflex else ""))
   return f"""<mujoco model="{name}">
   <compiler angle="radian" autolimits="true"/>
   <option timestep="0.002" iterations="100" ls_iterations="50"/>

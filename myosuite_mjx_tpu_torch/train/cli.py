@@ -11,7 +11,12 @@ What differs:
   what the uninterrupted run would have drawn;
 - precision is pinned once, when the env is built (``envs/base.py``), and
   there is no compile cache (PyTorch runs eagerly);
-- ``--mesh data`` needs ``parallel/mesh``, which is not ported yet.
+- ``--mesh data`` runs NPG or PPO data-parallel over ``torch.distributed``
+  (``parallel/mesh.py``): in one process, or in one process per card (or
+  per CPU worker, with ``--device cpu`` on ``gloo``) under ``torchrun``.
+  Each process steps num_envs / world envs; rank 0 prints and writes the
+  metrics, and each process checkpoints its own envs (``.rank<r>`` after
+  the name on ranks above 0).
 
 Usage:
   python -m myosuite_mjx_tpu_torch.train.cli --env hand23PoseFixed-v0 \\
@@ -21,6 +26,9 @@ Usage:
       --algo sac --total-steps 3200 --device cpu
   python -m myosuite_mjx_tpu_torch.train.cli ... \\
       --resume /tmp/ckpt/iter_0000005
+  torchrun --nproc_per_node=2 -m myosuite_mjx_tpu_torch.train.cli \\
+      --env hand11PoseFixed-v0 --algo npg --num-envs 8 --device cpu \\
+      --mesh data
 """
 from __future__ import annotations
 
@@ -44,8 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
   ap.add_argument("--hidden", type=str, default=None,
                   help="comma-separated layer widths, e.g. 256,128")
   ap.add_argument("--mesh", default=None, choices=(None, "data"),
-                  help="shard envs over all local devices on a data mesh "
-                       "(needs parallel/mesh, not ported yet)")
+                  help="shard the envs of ppo or npg over the processes "
+                       "of a torch.distributed group (torchrun's, or this "
+                       "process alone)")
   ap.add_argument("--checkpoint-dir", default=None)
   ap.add_argument("--checkpoint-every", type=int, default=100,
                   help="iterations between checkpoints")
@@ -91,9 +100,19 @@ def make_learner(args, env):
 def main(argv=None):
   """Train as the flags say; returns the final learner state."""
   args = build_parser().parse_args(argv)
+  lead, rank_suffix = True, ""
   if args.mesh == "data":
-    raise SystemExit("--mesh data needs parallel/mesh (ShardedPPO), which "
-                     "the PyTorch port has not ported yet")
+    if args.algo == "sac":
+      raise SystemExit("--mesh data shards --algo ppo and npg")
+    from myosuite_mjx_tpu_torch.parallel import mesh as pmesh
+    if args.device == "cuda" and "LOCAL_RANK" in os.environ:
+      # one card per process
+      args.device = f"cuda:{os.environ['LOCAL_RANK']}"
+      torch.cuda.set_device(args.device)
+    pmesh.init_distributed(device=args.device)
+    mesh = pmesh.data_mesh()
+    lead = mesh.rank == 0
+    rank_suffix = f".rank{mesh.rank}" if mesh.rank else ""
 
   from myosuite_mjx_tpu_torch import envs
   from myosuite_mjx_tpu_torch.train import checkpoint
@@ -102,6 +121,9 @@ def main(argv=None):
 
   env = envs.make(args.env)
   learner, per_iter = make_learner(args, env)
+  if args.mesh == "data":
+    sharded = pmesh.ShardedPPO if args.algo == "ppo" else pmesh.ShardedNPG
+    learner = sharded(learner, mesh, seed=args.seed)
   device = learner.device
   # the learners' own train() seeds its generators the same way
   generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -110,11 +132,12 @@ def main(argv=None):
          "eval_generator": eval_gen}
   start_iter = 0
   if args.resume:
-    run = checkpoint.restore(args.resume, run)
+    run = checkpoint.restore(args.resume + rank_suffix, run)
     # the iteration count follows from the restored env-step counter, so
     # iteration numbers, env_steps and checkpoint names continue
     start_iter = int(run["state"].steps) // per_iter
-    print(f"resumed from {args.resume} at iter {start_iter}", flush=True)
+    if lead:
+      print(f"resumed from {args.resume} at iter {start_iter}", flush=True)
 
   eval_fn = None
   if args.eval_every and args.algo in ("ppo", "npg"):
@@ -126,7 +149,7 @@ def main(argv=None):
   writer = (metrics_mod.MetricsWriter(
       args.logdir,
       truncate_after=start_iter * per_iter if args.resume else None)
-      if args.logdir else None)
+      if args.logdir and lead else None)
   for it in range(start_iter, iters):
     ts, metrics = learner.train_step(run["state"], generator)
     run["state"] = ts
@@ -147,8 +170,9 @@ def main(argv=None):
         metrics_mod.check_finite(metrics, where=f"iter {it + 1}")
       except metrics_mod.DivergenceError:
         if args.checkpoint_dir:
-          checkpoint.save(os.path.join(args.checkpoint_dir,
-                                       f"diverged_iter_{it + 1:07d}"), run)
+          checkpoint.save(os.path.join(
+              args.checkpoint_dir,
+              f"diverged_iter_{it + 1:07d}{rank_suffix}"), run)
         raise
       now = time.time()
       steps_now = (it + 1) * per_iter
@@ -166,14 +190,15 @@ def main(argv=None):
         writer.write(rec["env_steps"], rec)
       if log_now:
         history.append(rec)
-        print(json.dumps(rec), flush=True)
+        if lead:
+          print(json.dumps(rec), flush=True)
     if args.checkpoint_dir and ((it + 1) % args.checkpoint_every == 0
                                 or it == iters - 1):
       checkpoint.save(os.path.join(args.checkpoint_dir,
-                                   f"iter_{it + 1:07d}"), run)
+                                   f"iter_{it + 1:07d}{rank_suffix}"), run)
   if writer is not None:
     writer.close()
-  if args.metrics_out:
+  if args.metrics_out and lead:
     with open(args.metrics_out, "w") as f:
       json.dump({"args": vars(args), "history": history}, f, indent=1)
   return run["state"]

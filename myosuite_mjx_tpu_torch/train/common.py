@@ -57,6 +57,39 @@ def adam(module, lr: float) -> torch.optim.Adam:
   return opt
 
 
+class BatchReductions:
+  """The reductions of a learner over its whole training batch. In one
+  process the batch is all here, so they are the plain ones; the
+  data-parallel learners (``parallel/mesh.py``) reduce them across
+  processes."""
+
+  def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+    """``x``, a sum over this process's part of the batch, summed over
+    the whole batch."""
+    return x
+
+  def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+    """``x``, a mean over this process's part of the batch, averaged over
+    the whole batch (every process holds an equal part)."""
+    return x
+
+  def moments(self, x: torch.Tensor):
+    """(mean, std with ddof 0) over every entry of ``x`` in the batch."""
+    return x.mean(), torch.sqrt(x.var(correction=0))
+
+  def norm_update(self, norm, batch: torch.Tensor):
+    """``norm`` (a ``ppo.RunningNorm``) updated with the batch's samples."""
+    return norm.update(batch)
+
+  def sync_grads(self, params: list) -> None:
+    """Make each parameter's ``.grad`` the whole batch's gradient."""
+
+  def gather_envs(self, x: torch.Tensor) -> torch.Tensor:
+    """``x`` [T, n, ...] of this process's n envs as the whole batch's
+    [T, N, ...], envs in the single-process order."""
+    return x
+
+
 def metrics_to_host(metrics: dict) -> dict:
   """One device-to-host copy for a dict of scalar tensors."""
   vals = torch.stack([v.detach().to(torch.float64).reshape(())

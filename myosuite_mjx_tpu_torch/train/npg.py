@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from myosuite_mjx_tpu_torch.envs.base import MyoEnv
-from myosuite_mjx_tpu_torch.train.common import (adam, load_adam_state,
+from myosuite_mjx_tpu_torch.train.common import (BatchReductions, adam,
+                                                 load_adam_state,
                                                  load_flax_params,
                                                  metrics_to_host, mlp)
 from myosuite_mjx_tpu_torch.train.ppo import (RunningNorm, gaussian_logp,
@@ -142,7 +143,7 @@ def npg_state_from_numpy(npg: "NPG", tree) -> NPGState:
       obs_norm=norm_from_numpy(tree.obs_norm, npg.dtype, npg.device))
 
 
-class NPG:
+class NPG(BatchReductions):
   """NPG trainer bound to a MyoEnv, on one device (the card unless the
   caller asks for the CPU); full-episode trajectory sampling."""
 
@@ -234,7 +235,8 @@ class NPG:
       advs[t] = gae
     advs = advs * live
     returns = advs + values
-    advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-6)
+    adv_mean, adv_std = self.moments(advs)
+    advs = (advs - adv_mean) / (adv_std + 1e-6)
     advs = advs * live
     obs = traj["obs"]
     return dict(obs=obs.reshape(-1, obs.shape[-1]),
@@ -245,15 +247,19 @@ class NPG:
 
   @staticmethod
   def mean_kl(policy: GaussianMLP, batch: dict, mean0: torch.Tensor,
-              log_std0: torch.Tensor) -> torch.Tensor:
-    """KL(pi_old || pi) averaged over the batch's live samples."""
+              log_std0: torch.Tensor,
+              denom: torch.Tensor | None = None) -> torch.Tensor:
+    """KL(pi_old || pi) summed over the batch's live samples, over
+    ``denom`` (default: their count)."""
     mean, log_std = policy(batch["obs"])
     var0, var = torch.exp(2 * log_std0), torch.exp(2 * log_std)
     kl = torch.sum(log_std - log_std0
                    + (var0 + torch.square(mean0 - mean)) / (2.0 * var) - 0.5,
                    dim=-1)
     live = batch["live"]
-    return torch.sum(kl * live) / live.sum().clamp_min(1.0)
+    if denom is None:
+      denom = live.sum().clamp_min(1.0)
+    return torch.sum(kl * live) / denom
 
   def natural_gradient(self, ts: NPGState, batch: dict) -> dict:
     """One KL-normalized natural-gradient step of ``ts.params``, in place.
@@ -262,24 +268,24 @@ class NPG:
     policy = ts.params
     params = list(policy.parameters())
     live = batch["live"]
-    denom = live.sum().clamp_min(1.0)
+    denom = self.batch_sum(live.sum()).clamp_min(1.0)
 
     mean, log_std = policy(batch["obs"])
     ratio = torch.exp(gaussian_logp(mean, log_std, batch["act"])
                       - batch["logp"])
     surrogate = torch.sum(ratio * batch["adv"] * live) / denom
-    g = _flat(torch.autograd.grad(surrogate, params))
+    g = self.batch_sum(_flat(torch.autograd.grad(surrogate, params)))
     mean0, log_std0 = mean.detach(), log_std.detach()
 
     # F v = Hessian of the mean KL at theta0 times v: one forward and one
     # backward with create_graph, then one backward per product
     kl_grad = _flat(torch.autograd.grad(
-        self.mean_kl(policy, batch, mean0, log_std0), params,
+        self.mean_kl(policy, batch, mean0, log_std0, denom), params,
         create_graph=True))
 
     def fvp(v):
       hv = torch.autograd.grad(kl_grad @ v, params, retain_graph=True)
-      return _flat(hv) + cfg.cg_damping * v
+      return self.batch_sum(_flat(hv)) + cfg.cg_damping * v
 
     x = torch.zeros_like(g)
     r, p, rr = g, g, g @ g
@@ -335,16 +341,24 @@ class NPG:
                       generator: torch.Generator | None = None):
     cfg = self.cfg
     traj = self.rollout(ts, noise, generator)
-    obs_norm = (ts.obs_norm.update(traj["obs_raw"])
+    obs_norm = (self.norm_update(ts.obs_norm, traj["obs_raw"])
                 if cfg.normalize_obs else ts.obs_norm)
     batch = self.gae(ts, traj)
     step = self.natural_gradient(ts, batch)
-    vf_loss = self.fit_value(ts, batch, perms)
-    live_sum = traj["live"].sum().clamp_min(1.0)
+    T = self.horizon
+
+    def whole(x):      # [T * n, ...] of this process's envs -> [T * N, ...]
+      x = self.gather_envs(x.reshape((T, -1) + tuple(x.shape[1:])))
+      return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    vf_loss = self.fit_value(
+        ts, {k: whole(batch[k]) for k in ("obs", "tfrac", "ret", "live")},
+        perms)
+    live_sum = self.batch_sum(traj["live"].sum()).clamp_min(1.0)
     metrics = dict(
-        stoc_pol_mean=traj["reward"].sum(0).mean(),
-        reward_mean=traj["reward"].sum() / live_sum,
-        solved_frac=traj["solved"].sum() / live_sum,
+        stoc_pol_mean=self.batch_mean(traj["reward"].sum(0).mean()),
+        reward_mean=self.batch_sum(traj["reward"].sum()) / live_sum,
+        solved_frac=self.batch_sum(traj["solved"].sum()) / live_sum,
         kl_step_alpha=step["kl_step_alpha"],
         vf_loss=vf_loss,
         grad_norm=step["grad_norm"])

@@ -38,8 +38,8 @@ from myosuite_mjx_tpu_torch.envs import base as env_base
 from myosuite_mjx_tpu_torch.envs.base import EnvState, MyoEnv
 # _flax_leaves, dense and flax_params also stay importable from here
 from myosuite_mjx_tpu_torch.train.common import (  # noqa: F401
-    _flax_leaves, adam, dense, flax_params, load_adam_state, load_flax_params,
-    metrics_to_host, mlp)
+    BatchReductions, _flax_leaves, adam, dense, flax_params, load_adam_state,
+    load_flax_params, metrics_to_host, mlp)
 
 _LOG_2PI = math.log(2 * math.pi)
 
@@ -120,11 +120,19 @@ class RunningNorm:
                var=torch.ones(shape, dtype=dtype, device=device),
                count=torch.full((), 1e-4, dtype=dtype, device=device))
 
+  def samples(self, batch: torch.Tensor) -> torch.Tensor:
+    """The batch as [samples, *shape]."""
+    return batch.reshape((-1,) + tuple(self.mean.shape))
+
   def update(self, batch: torch.Tensor) -> "RunningNorm":
-    flat = batch.reshape((-1,) + tuple(self.mean.shape))
-    bmean = flat.mean(dim=0)
-    bvar = flat.var(dim=0, correction=0)     # jnp.var: ddof 0
-    bcount = flat.shape[0]
+    flat = self.samples(batch)
+    # jnp.var: ddof 0
+    return self.merge(flat.mean(dim=0), flat.var(dim=0, correction=0),
+                      flat.shape[0])
+
+  def merge(self, bmean: torch.Tensor, bvar: torch.Tensor,
+            bcount: int) -> "RunningNorm":
+    """Welford's merge of a batch's mean, variance and count."""
     delta = bmean - self.mean
     tot = self.count + bcount
     new_mean = self.mean + delta * bcount / tot
@@ -196,7 +204,7 @@ def train_state_from_numpy(ppo: "PPO", tree) -> TrainState:
 
 # ---- the learner ---------------------------------------------------------
 
-class PPO:
+class PPO(BatchReductions):
   """PPO trainer bound to a MyoEnv, on one device (the card unless the
   caller asks for the CPU)."""
 
@@ -297,9 +305,9 @@ class PPO:
     """New obs and return statistics (used from the next rollout on) and the
     rollout's reward scaled by the old return statistics."""
     cfg = self.cfg
-    obs_norm = (ts.obs_norm.update(traj["obs_raw"])
+    obs_norm = (self.norm_update(ts.obs_norm, traj["obs_raw"])
                 if cfg.normalize_obs else ts.obs_norm)
-    ret_norm = (ts.ret_norm.update(traj["ret_accum"])
+    ret_norm = (self.norm_update(ts.ret_norm, traj["ret_accum"])
                 if cfg.normalize_reward else ts.ret_norm)
     reward = traj["reward"]
     if cfg.normalize_reward:
@@ -331,8 +339,8 @@ class PPO:
     mean, log_std, value = net(mb["obs"])
     logp = gaussian_logp(mean, log_std, mb["act"])
     ratio = torch.exp(logp - mb["logp"])
-    adv = (mb["adv"] - mb["adv"].mean()) / (mb["adv"].std(correction=0)
-                                           + 1e-8)
+    adv_mean, adv_std = self.moments(mb["adv"])
+    adv = (mb["adv"] - adv_mean) / (adv_std + 1e-8)
     pg1 = ratio * adv
     pg2 = ratio.clamp(1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
     pg_loss = -torch.minimum(pg1, pg2).mean()
@@ -358,6 +366,7 @@ class PPO:
         loss = self.loss(net, mb)
         opt.zero_grad()
         loss.backward()
+        self.sync_grads(params)
         with torch.no_grad():
           clip_by_global_norm(params, self.cfg.max_grad_norm)
         opt.step()
@@ -393,8 +402,9 @@ class PPO:
     batch = dict(obs=flat(traj["obs"]), act=flat(traj["act"]),
                  logp=flat(traj["logp"]), adv=flat(advs), ret=flat(returns))
     loss = self.update(ts, batch, perms, num_minibatches)
-    metrics = dict(loss=loss, reward_mean=reward.mean(),
-                   solved_frac=traj["solved"].mean())
+    metrics = dict(loss=self.batch_mean(loss),
+                   reward_mean=self.batch_mean(reward.mean()),
+                   solved_frac=self.batch_mean(traj["solved"].mean()))
     new_ts = TrainState(
         params=ts.params, opt_state=ts.opt_state, env_state=env_state,
         steps=ts.steps + cfg.unroll_length * cfg.num_envs,

@@ -205,9 +205,12 @@ def test_prove_sac_writes_its_json(tmp_path, monkeypatch):
 
 
 def test_mesh_data_exits_with_its_message():
-  with pytest.raises(SystemExit, match="parallel/mesh"):
-    cli.main(["--env", "hand11ReachTiny-v0", "--mesh", "data", "--device",
-              "cpu"])
+  """``--mesh data`` shards NPG and PPO (``tests/test_torch_parallel.py``);
+  SAC has no data-parallel learner, and says so."""
+  with pytest.raises(SystemExit, match="--mesh data shards --algo ppo and "
+                                       "npg"):
+    cli.main(["--env", "hand11ReachTiny-v0", "--algo", "sac", "--mesh",
+              "data", "--device", "cpu"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="there is a card here")

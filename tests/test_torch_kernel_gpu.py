@@ -16,6 +16,9 @@ H100), with and without the factor, at one system, B = 16, 4096 and 4097;
 misaligned views (the plain loads); the clamp cases (pivots that reach 0 or
 go below tiny); and the entry points that run through it: a float64
 ``MyoEnv`` and ``Physics`` on chain72 (nv 72), each against the CPU.
+Last, the rest of the port on the card against the CPU: the reflex
+controller's update, the gym adapter, the CNN encoder, and the
+data-parallel learners at world size 1 on NCCL against the plain step.
 """
 from __future__ import annotations
 
@@ -310,3 +313,118 @@ def test_chain72_physics_runs_through_the_general_kernel(dtype):
   bound = 1e-4 if dtype == torch.float32 else 1e-8
   np.testing.assert_allclose(res["cuda"].qpos.double().cpu().numpy(),
                              res["cpu"].qpos.numpy(), rtol=0, atol=bound)
+
+
+@pytest.mark.gpu
+def test_reflex_update_on_card_matches_cpu():
+  """``reflex_update`` on 1,024 seeded float32 inputs: card float32
+  against CPU float64, flags equal, stimulations within 1e-5."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  from myosuite_mjx_tpu_torch.agents import reflex
+  rng = np.random.default_rng(0)
+  n = 1024
+  cp = reflex.expand_params(rng.uniform(-0.5, 2.5, (n, 46)), torch.float32,
+                            "cpu")
+  flags = {f: torch.as_tensor(rng.random((n, 2)) < 0.5)
+           for f in reflex.ReflexState.__dataclass_fields__}
+  sens = {k: torch.as_tensor(rng.uniform(lo, hi, (n, 2)),
+                             dtype=torch.float32)
+          for k, (lo, hi) in dict(
+              theta=(-0.4, 0.4), d_pos=(-1.0, 2.0), dtheta=(-2.0, 2.0),
+              load_ipsi=(-0.1, 1.5), alpha=(0.8, 2.4), dalpha=(-3.0, 3.0),
+              alpha_f=(1.2, 2.0), phi_hip=(2.0, 3.8), phi_knee=(1.6, 3.3),
+              phi_ankle=(1.0, 2.2), dphi_knee=(-5.0, 5.0),
+              F_RF=(-1.0, 0.2), F_VAS=(-1.0, 0.2), F_GAS=(-1.0, 0.2),
+              F_SOL=(-1.0, 0.2)).items()}
+  sens["contact_ipsi"] = sens["load_ipsi"] > 0.1
+  sens["contact_contra"] = sens["contact_ipsi"].flip(-1)
+  sens["load_contra"] = sens["load_ipsi"].flip(-1)
+  res = {}
+  for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+    new, stim = reflex.reflex_update(
+        cp.to(device, dtype),
+        reflex.ReflexState(**{k: v.to(device) for k, v in flags.items()}),
+        {k: v.to(device) if v.dtype == torch.bool else v.to(device, dtype)
+         for k, v in sens.items()})
+    res[device] = new, stim.double().cpu()
+  for f in flags:
+    assert torch.equal(getattr(res["cuda"][0], f).cpu(),
+                       getattr(res["cpu"][0], f)), f
+  np.testing.assert_allclose(res["cuda"][1].numpy(), res["cpu"][1].numpy(),
+                             rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gym_env_and_cnn_encoder_on_card_match_cpu():
+  """``gym_make`` on hand23's pose id, 3 steps on the card (float32)
+  against the CPU (float64) within phase 5's qpos bound on the obs; the
+  CNN encoder, card float32 against CPU float64, within 1e-5 of the
+  largest feature."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  from myosuite_mjx_tpu_torch.envs import gym_make, visual
+  actions = np.random.default_rng(0).uniform(0.0, 1.0, (3, 39))
+  obs = {}
+  for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+    env = gym_make("hand23PoseFixed-v0", seed=0, device=device, dtype=dtype)
+    env.reset()
+    for a in actions:
+      o, r, term, trunc, _ = env.step(a)
+      assert np.isfinite(r) and isinstance(term, bool)
+    obs[device] = o
+  np.testing.assert_allclose(obs["cuda"], obs["cpu"], rtol=0, atol=1e-4)
+  frames = torch.randint(0, 256, (16, 84, 84, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(0))
+  enc = visual.FlaxCNNEncoder(device="cuda")
+  with torch.no_grad():
+    card = enc(frames.cuda()).double().cpu()
+    ref = enc.to("cpu", torch.float64)(frames)
+  assert float((card - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["npg", "ppo"])
+def test_sharded_step_on_nccl_matches_plain_step(algo):
+  """One sharded step at world size 1 on NCCL against the plain step from
+  the same seed: hand23's pose task, 16 envs, horizon 5, PPO 2 epochs of
+  2 minibatches; the largest parameter difference within 1e-6 of the
+  largest parameter change (one process computes what the plain learner
+  does)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  import socket
+  import torch.distributed as dist
+  from myosuite_mjx_tpu_torch import envs
+  from myosuite_mjx_tpu_torch.parallel import mesh as pmesh
+  from myosuite_mjx_tpu_torch.tools.scaling_efficiency import flat_params
+  from myosuite_mjx_tpu_torch.train import npg, ppo
+  env = envs.make("hand23PoseFixed-v0", horizon=5)
+
+  def learner():
+    if algo == "npg":
+      return npg.NPG(env, npg.NPGConfig(num_envs=16))
+    return ppo.PPO(env, ppo.PPOConfig(num_envs=16, unroll_length=5,
+                                      num_minibatches=2, update_epochs=2))
+
+  with socket.socket() as sk:
+    sk.bind(("127.0.0.1", 0))
+    address = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
+  assert pmesh.init_distributed(address, 1, 0, device="cuda") is False
+  try:
+    assert dist.get_backend() == "nccl"
+    out = []
+    for sharded in (True, False):
+      lr = learner()
+      if sharded:
+        lr = (pmesh.ShardedNPG if algo == "npg" else pmesh.ShardedPPO)(lr)
+      g = torch.Generator(device="cuda").manual_seed(0)
+      ts = lr.init(generator=g)
+      before = flat_params(ts).clone()
+      ts, m = lr.train_step(ts, g)
+      out.append(flat_params(ts))
+  finally:
+    dist.destroy_process_group()
+  change = float((out[1] - before).abs().max())
+  assert change > 0
+  assert float((out[0] - out[1]).abs().max()) <= 1e-6 * change

@@ -18,10 +18,14 @@ from torch_parity import (FIXTURE_NPZ, HAND_TARGET, LEGS, NPZ, OBJECTS, SAR,
                           TASK_SCENES, TRACK, export_model, fixture_xml,
                           jax_model)
 from myosuite_mjx_tpu.engine import model as jmodel
+from myosuite_mjx_tpu_torch.agents import reflex
 from myosuite_mjx_tpu_torch.engine import api, collision
 from myosuite_mjx_tpu_torch.engine import data as tdata
 from myosuite_mjx_tpu_torch.engine import model as tmodel
-from myosuite_mjx_tpu_torch.envs import base, fatigue, randomize
+from myosuite_mjx_tpu_torch.envs import (base, fatigue, gym_adapter,
+                                         randomize, visual)
+from myosuite_mjx_tpu_torch.parallel import mesh as pmesh
+from myosuite_mjx_tpu_torch.tools import tune_reflex
 from myosuite_mjx_tpu_torch.train import sac
 from myosuite_mjx_tpu_torch.utils import curriculum, min_jerk
 from myosuite_mjx_tpu_torch.utils import paths as path_utils
@@ -138,9 +142,16 @@ def test_port_sources_import_no_jax_flax_mujoco_or_jax_package():
                  for f in files if f.endswith(".py"))
   paths.append(os.path.join(REPO, "chip_smoke.py"))
   assert len(paths) >= 20, paths
-  # the walk reaches the utilities and the trace logger
+  # the walk reaches the utilities, the trace logger, the reflex
+  # controller, the gym adapter, the encoders, the data-parallel learners
+  # and the tools
   for sub in (("utils", "ik.py"), ("utils", "xml_utils.py"),
-              ("utils", "examine_sim.py"), ("logger", "trace.py")):
+              ("utils", "examine_sim.py"), ("logger", "trace.py"),
+              ("agents", "reflex.py"), ("envs", "gym_adapter.py"),
+              ("envs", "visual.py"), ("parallel", "mesh.py"),
+              ("tools", "tune_reflex.py"), ("tools", "scaling_efficiency.py"),
+              ("tools", "train_zoo_baseline.py"),
+              ("tools", "convergence_study.py")):
     assert os.path.join(pkg, *sub) in paths, sub
   found = []
   for path in paths:
@@ -155,7 +166,12 @@ def test_port_sources_import_no_jax_flax_mujoco_or_jax_package():
     sac.SAC.__init__, randomize.sample_overlay, fatigue.init_state,
     api.Physics.__init__, api.load, path_utils.obs_layout,
     path_utils.compute_path_rewards, min_jerk.generate_joint_space_min_jerk,
-    curriculum.init],
+    curriculum.init, reflex.expand_params, reflex.init_state,
+    reflex.ReflexWalker.reset, reflex.ReflexWalker.rollout,
+    tune_reflex.score, gym_adapter.GymEnv.__init__,
+    gym_adapter.GymVecEnv.__init__, gym_adapter.gym_make,
+    visual.FlaxCNNEncoder.__init__, visual.encoder_from_flax, visual.encoder,
+    pmesh.init_distributed],
                          ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
   assert inspect.signature(fn).parameters["device"].default == "cuda"

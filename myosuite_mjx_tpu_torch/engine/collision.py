@@ -27,6 +27,7 @@ import torch
 from myosuite_mjx_tpu_torch.engine import smooth
 from myosuite_mjx_tpu_torch.engine.data import Contact, Data
 from myosuite_mjx_tpu_torch.engine.model import DeviceModel, GeomType, Model
+from myosuite_mjx_tpu_torch.utils import spans
 
 _MINVAL = 1e-15
 
@@ -181,6 +182,7 @@ class _Group:
   size2: torch.Tensor
   hfield: "_HField | None" = None  # geom1's field, for the hfield pairs
   hull: "_Hull | None" = None      # geom2's hull, for the mesh pairs
+  span: str = ""                   # its span, contacts.<TYPE1>-<TYPE2>
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +250,8 @@ def _build_collision_spec(m: DeviceModel) -> _CollisionSpec | None:
         key[:2], t(g1), t(g2), m.tensor(h.geom_size[g1]),
         m.tensor(h.geom_size[g2]),
         hfield=_hfield(m, key[2]) if key[0] == GeomType.HFIELD else None,
-        hull=_hull(m, key[2]) if mesh else None))
+        hull=_hull(m, key[2]) if mesh else None,
+        span=spans.GROUP + "-".join(GeomType(t).name for t in key[:2])))
     # slots are point-major then pair-major: [point0 of all pairs, ...]
     for _ in range(_npoints(h, plist[0])):
       for p in plist:
@@ -1253,12 +1256,13 @@ def narrowphase_all(m: DeviceModel, d: Data, spec: _CollisionSpec):
       s2 = g.size2.expand(B, -1, -1)
     else:
       s1, s2 = sizes[:, g.g1], sizes[:, g.g2]
-    di, po, nn = group_fn(g, d)(
-        d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1], s1,
-        d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], s2)
-    dists.append(di.transpose(1, 2).reshape(B, -1))
-    poss.append(po.transpose(1, 2).reshape(B, -1, 3))
-    ns.append(nn.expand(po.shape).transpose(1, 2).reshape(B, -1, 3))
+    with spans.span(g.span):
+      di, po, nn = group_fn(g, d)(
+          d.geom_xpos[:, g.g1], d.geom_xmat[:, g.g1], s1,
+          d.geom_xpos[:, g.g2], d.geom_xmat[:, g.g2], s2)
+      dists.append(di.transpose(1, 2).reshape(B, -1))
+      poss.append(po.transpose(1, 2).reshape(B, -1, 3))
+      ns.append(nn.expand(po.shape).transpose(1, 2).reshape(B, -1, 3))
   return (torch.cat(dists, dim=1), torch.cat(poss, dim=1),
           torch.cat(ns, dim=1))
 

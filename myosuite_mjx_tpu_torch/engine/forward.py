@@ -28,6 +28,7 @@ from myosuite_mjx_tpu_torch.engine.model import (
     DynType, GainType, JointType, TrnType)
 from myosuite_mjx_tpu_torch.ops import linalg
 from myosuite_mjx_tpu_torch.ops import quat as qmath
+from myosuite_mjx_tpu_torch.utils import spans
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -306,13 +307,19 @@ def forward(m: DeviceModel, d: Data, constraint: bool = True,
   """Full forward dynamics at the current state.
 
   ``constraint=False`` skips collision and the Newton solve and takes the
-  smooth acceleration (the pose tasks' reset path).
+  smooth acceleration (the pose tasks' reset path). Each stage runs in
+  its span (``utils/spans.py``).
   """
-  d = fwd_position(m, d, full_data)
-  d = fwd_velocity(m, d)
-  d = fwd_actuation(m, d)
-  d = fwd_passive(m, d)
-  d = fwd_acceleration(m, d, full_data)
+  with spans.span(spans.FWD_POSITION):
+    d = fwd_position(m, d, full_data)
+  with spans.span(spans.FWD_VELOCITY):
+    d = fwd_velocity(m, d)
+  with spans.span(spans.FWD_ACTUATION):
+    d = fwd_actuation(m, d)
+  with spans.span(spans.FWD_PASSIVE):
+    d = fwd_passive(m, d)
+  with spans.span(spans.FWD_ACCELERATION):
+    d = fwd_acceleration(m, d, full_data)
   if not constraint:
     return solver.smooth_only(m, d)
   return solver.fwd_constraint(m, d, full_data)
@@ -401,4 +408,6 @@ def euler(m: DeviceModel, d: Data) -> Data:
 
 def step(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
   """One physics step: forward dynamics, then Euler integration."""
-  return euler(m, forward(m, d, full_data=full_data))
+  d = forward(m, d, full_data=full_data)
+  with spans.span(spans.EULER):
+    return euler(m, d)

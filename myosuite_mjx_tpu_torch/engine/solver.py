@@ -23,6 +23,7 @@ from myosuite_mjx_tpu_torch.engine import collision, constraint
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DSBL_CONTACT, DeviceModel
 from myosuite_mjx_tpu_torch.ops import linalg
+from myosuite_mjx_tpu_torch.utils import spans
 
 _BLOCK = 2   # Newton iterations between two batch-wide exit tests
 
@@ -157,16 +158,29 @@ def fwd_constraint(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
   """Constraint forces and the constrained acceleration.
 
   ``full_data`` also fills the contact set, contact forces and limit-force
-  diagnostics (see ``forward``).
+  diagnostics (see ``forward``). Contacts, the constraint rows and the
+  solve each run in their span, and the solve's per-env iterations feed
+  the Newton counter (``utils/spans.py``).
   """
-  contact_blocks, contact_info = collision.contacts(m, d)
-  efc = constraint.make_efc(m, d, contact_blocks)
-  if efc is None:
-    return smooth_only(m, d)
+  with spans.span(spans.CONTACTS):
+    contact_blocks, contact_info = collision.contacts(m, d)
+  with spans.span(spans.MAKE_EFC):
+    efc = constraint.make_efc(m, d, contact_blocks)
+  with spans.span(spans.NEWTON):
+    if efc is None:
+      return smooth_only(m, d)
+    return _solve(m, d, efc, contact_blocks, contact_info, full_data)
+
+
+def _solve(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,
+           full_data: bool) -> Data:
+  """The Newton solve on the rows ``efc``, then its forces scattered into
+  Data."""
   J, aref, D, is_eq, _pos, meta = efc
-  qacc, force, _ = _newton_solve(m, d, J, aref, D, is_eq,
-                                 int(m.opt.solver_iterations),
-                                 int(m.opt.ls_iterations))
+  qacc, force, iterations = _newton_solve(m, d, J, aref, D, is_eq,
+                                          int(m.opt.solver_iterations),
+                                          int(m.opt.ls_iterations))
+  spans.newton_solved(iterations)
   out = d.replace(qfrc_constraint=_mv(J.transpose(-1, -2), force), qacc=qacc,
                   qacc_warmstart=qacc)
   if not full_data:

@@ -43,6 +43,7 @@ from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DynType, JointType, TrnType
 from myosuite_mjx_tpu_torch.envs import fatigue
 from myosuite_mjx_tpu_torch.envs.randomize import uniform
+from myosuite_mjx_tpu_torch.utils import spans
 
 MUSCLE_CONDITIONS = ("", "sarcopenia", "fatigue", "reafferentation")
 
@@ -361,14 +362,17 @@ class MyoEnv:
   def step(self, state: EnvState, action: torch.Tensor,
            generator: torch.Generator | None = None) -> EnvState:
     """One control step: ctrl from ``control``, then frame_skip
-    substeps."""
+    substeps. The control and the task's part run in their spans, the
+    substeps' stages in theirs (``utils/spans.py``)."""
     dm = self.device_model(state.data.qpos.device)
-    ctrl, aux = self.control(state, action)
+    with spans.span(spans.ENV_CONTROL):
+      ctrl, aux = self.control(state, action)
     d = state.data.replace(ctrl=ctrl)
     for _ in range(self.frame_skip - 1):
       d = forward_mod.step(dm, d, full_data=False)
     d = forward_mod.step(dm, d, full_data=True)
-    return self._mk_state(d, aux, state.steps + 1, generator)
+    with spans.span(spans.ENV_TASK):
+      return self._mk_state(d, aux, state.steps + 1, generator)
 
   def truncated(self, state: EnvState) -> torch.Tensor:
     return state.steps >= self.horizon
@@ -379,18 +383,21 @@ class MyoEnv:
     horizon. The result keeps the pre-reset ``done``, reward, rwd_dense,
     rwd_sparse, solved, terminated and truncated; its physics, obs and
     steps are the fresh episode's; an env that resets takes the fresh
-    episode's model overlay and condition state, the others keep theirs."""
+    episode's model overlay and condition state, the others keep theirs.
+    The reset and the merge run in their spans (``utils/spans.py``)."""
     nxt = self.step(state, action, generator)
-    fresh = self.reset(nxt.obs.shape[0], nxt.obs.device, generator)
-    terminated = nxt.done
-    truncated = self.truncated(nxt) & ~terminated
-    out = _select(terminated | truncated, fresh, nxt)
-    return out.replace(
-        done=terminated, reward=nxt.reward,
-        info={**out.info, "rwd_dense": nxt.info["rwd_dense"],
-              "rwd_sparse": nxt.info["rwd_sparse"],
-              "solved": nxt.info["solved"],
-              "terminated": terminated, "truncated": truncated})
+    with spans.span(spans.ENV_RESET):
+      fresh = self.reset(nxt.obs.shape[0], nxt.obs.device, generator)
+    with spans.span(spans.ENV_SELECT):
+      terminated = nxt.done
+      truncated = self.truncated(nxt) & ~terminated
+      out = _select(terminated | truncated, fresh, nxt)
+      return out.replace(
+          done=terminated, reward=nxt.reward,
+          info={**out.info, "rwd_dense": nxt.info["rwd_dense"],
+                "rwd_sparse": nxt.info["rwd_sparse"],
+                "solved": nxt.info["solved"],
+                "terminated": terminated, "truncated": truncated})
 
 
 class BatchedEnv:

@@ -12,8 +12,9 @@ its mocap bodies), and it also prints the ops of one control step
 (``autoreset_step``: ``frame_skip`` substeps, obs, reward and the folded-in
 reset). Views (reshape, expand, slicing, transposes) are not counted: they
 launch no kernel. On the card nearly every counted op is one kernel
-launch, so the count predicts the host's dispatch cost without a card;
-``tools/profile_step.py`` measures the launches there.
+launch, so this is the CPU-side counter of what the benchmark's
+``launches_per_substep`` measures on the card (``benchmark/run.py
+--trace 1``); ``tools/profile_step.py`` gives each span's device time there.
 """
 from __future__ import annotations
 

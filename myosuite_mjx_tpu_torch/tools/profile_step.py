@@ -1,61 +1,52 @@
-"""Where the batched env step's time goes, on one CUDA card.
+"""Where the batched env step's time goes, on one CUDA card, by span.
 
     python -m myosuite_mjx_tpu_torch.tools.profile_step [--batch 4096]
-        [--env hand23ObjHoldRandom-v0]
+        [--steps 3] [--env hand23ObjHoldRandom-v0] [--table PATH]
 
 Runs a task id of the port's registry (default ``hand23PoseFixed-v0``, the
-hand23 pose task with myoHandPoseFixed-v0's kwargs) and prints:
+hand23 pose task with myoHandPoseFixed-v0's kwargs), warms it, profiles one
+window of ``--steps`` control steps and prints:
 
-- per engine stage, the host wall time of one call at the batch size,
-  between two ``torch.cuda.synchronize()`` (so launch overhead counts),
-  and the number of kernels the stage launches (profiler count); the
-  contacts stage also per narrowphase type group (named by its geom
-  types, e.g. ``CAPSULE-MESH``);
-- over a profiled window of control steps, wall time, summed device
-  kernel time and the device's idle share (1 - kernel time / wall);
+- per span of the port (``utils/spans.py``: the stages of the control step
+  and, inside ``engine.contacts``, one per narrowphase type group, named by
+  its geom types, e.g. ``contacts.CAPSULE-MESH``), per control step: its
+  calls, host ms (the span's wall on the host, the profiler's cost
+  included) and device ms (the kernels launched inside it). A stage's row
+  counts every call, those of the reset's forward pass too, which also
+  sit inside ``env.reset``'s row;
+- the Newton solves' useful share (``spans.newton_work``);
 - the kernels with the most device time.
 
-With ``--table PATH`` it also writes the full profiler table to PATH.
+The device's idle share, and the idle time by span, are the benchmark's
+(``device_idle_share.env`` and ``idle_share.*``, ``benchmark/run.py
+--trace 1``). With ``--table PATH`` it also writes the full profiler table
+to PATH.
 """
 from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from myosuite_mjx_tpu_torch import envs
-from myosuite_mjx_tpu_torch.engine import collision, constraint, forward
-from myosuite_mjx_tpu_torch.engine import solver
-from myosuite_mjx_tpu_torch.engine.model import GeomType
 from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+from myosuite_mjx_tpu_torch.utils import spans
 
 
-def _device_us(prof) -> float:
-  return sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-
-
-def _kernels(prof) -> int:
-  return sum(e.count for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-
-
-def _stage(name, fn, reps=10):
-  fn()
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  for _ in range(reps):
-    fn()
-  torch.cuda.synchronize()
-  ms = (time.perf_counter() - t0) / reps * 1e3
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
-  print(f"stage {name:<22} {ms:8.3f} ms  kernels {_kernels(prof):5d}  "
-        f"device {_device_us(prof) / 1e3:8.3f} ms", flush=True)
+def span_rows(prof, steps: int) -> list:
+  """(name, calls, host ms, device ms) per control step of every span in
+  ``prof``: the top-level ones in the control step's order, then the group
+  spans by device time."""
+  found = {e.key: e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and (e.key in spans.TOP_LEVEL or e.key.startswith(spans.GROUP))}
+  top = [found[n] for n in spans.TOP_LEVEL if n in found]
+  groups = sorted((e for n, e in found.items() if n.startswith(spans.GROUP)),
+                  key=lambda e: -e.device_time_total)
+  return [(e.key, e.count / steps, e.cpu_time_total / steps / 1e3,
+           e.device_time_total / steps / 1e3) for e in top + groups]
 
 
 def main(argv=None) -> None:
@@ -74,50 +65,23 @@ def main(argv=None) -> None:
   st = benv.init()
   for _ in range(3):
     st = benv.step(st, act())
-  m, d = env.device_model("cuda"), st.data
-  d_pos = forward.fwd_position(m, d, False)
-  d_vel = forward.fwd_velocity(m, d_pos)
-  d_act = forward.fwd_passive(m, forward.fwd_actuation(m, d_vel))
-  d_acc = forward.fwd_acceleration(m, d_act, False)
-  blocks, _ = collision.contacts(m, d_acc)
-  efc = constraint.make_efc(m, d_acc, blocks)
-  d_con = forward.forward(m, d, full_data=False)
-  iters = int(m.opt.solver_iterations), int(m.opt.ls_iterations)
+  actions = [act() for _ in range(args.steps)]
   print(f"card {torch.cuda.get_device_name(0)}, {args.env}, batch "
         f"{args.batch}, nv {env.model.nv}, frame_skip {env.frame_skip}")
-  _stage("fwd_position", lambda: forward.fwd_position(m, d, False))
-  _stage("fwd_velocity", lambda: forward.fwd_velocity(m, d_pos))
-  _stage("fwd_actuation+passive", lambda: forward.fwd_passive(
-      m, forward.fwd_actuation(m, d_vel)))
-  _stage("fwd_acceleration", lambda: forward.fwd_acceleration(m, d_act,
-                                                              False))
-  _stage("contacts", lambda: collision.contacts(m, d_acc))
-  spec = collision.collision_spec(m)
-  for grp in spec.groups if spec is not None else ():
-    s1 = grp.size1.expand(args.batch, -1, -1)
-    s2 = grp.size2.expand(args.batch, -1, -1)
-    _stage("  " + "-".join(GeomType(t).name for t in grp.types),
-           lambda grp=grp, s1=s1, s2=s2: collision.group_fn(grp, d_acc)(
-               d_acc.geom_xpos[:, grp.g1], d_acc.geom_xmat[:, grp.g1], s1,
-               d_acc.geom_xpos[:, grp.g2], d_acc.geom_xmat[:, grp.g2], s2))
-  _stage("make_efc", lambda: constraint.make_efc(m, d_acc, blocks))
-  _stage("newton_solve", lambda: solver._newton_solve(
-      m, d_acc, efc[0], efc[1], efc[2], efc[3], *iters))
-  _stage("euler", lambda: forward.euler(m, d_con))
-  _stage("substep (step)", lambda: forward.step(m, d, full_data=False))
-  _stage("env step (autoreset)", lambda: benv.step(st, act()), reps=3)
 
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-      st = benv.step(st, act())
+    for a in actions:
+      st = benv.step(st, a)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-  busy = _device_us(p) / 1e6
-  print(f"profiled {args.steps} control steps: wall {wall:.3f} s, device "
-        f"kernel time {busy:.3f} s, device idle share {1 - busy / wall:.3f}, "
-        f"kernels launched {_kernels(p)}")
+  print(f"per control step, over {args.steps}:")
+  print(f"  {'span':<28} {'calls':>7} {'host ms':>9} {'device ms':>10}")
+  for name, calls, host_ms, dev_ms in span_rows(p, args.steps):
+    print(f"  {name:<28} {calls:7.1f} {host_ms:9.3f} {dev_ms:10.3f}")
+  useful, run = spans.newton_work()
+  if run:
+    print(f"Newton useful share {100.0 * useful / run:.1f}% ({useful} of "
+          f"{run} env-iterations)")
   table = p.key_averages().table(sort_by="self_cuda_time_total",
                                  row_limit=40)
   print("\n".join(table.splitlines()[:25]))

@@ -1,0 +1,209 @@
+"""The port's spans and its Newton useful-work counter (``utils/spans.py``),
+and the benchmark's readers of them, on the CPU: hand23 pose, B = 4.
+
+Without a profiler a span is one shared no-op and the counter keeps
+nothing. Under ``torch.profiler`` the outermost host ranges of one
+``autoreset_step`` are the documented top-level spans in order, the
+narrowphase group spans sit inside ``engine.contacts``, the outputs are
+bit-identical to an unprofiled step, and the counter holds what the Newton
+solves returned.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import os
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from myosuite_mjx_tpu_torch import envs
+from myosuite_mjx_tpu_torch.engine import solver
+from myosuite_mjx_tpu_torch.utils import spans
+
+B = 4
+TASK = "hand23PoseFixed-v0"
+METRICS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "benchmark", "metrics")
+IDLE_READERS = {
+    "idle_share.position": {spans.FWD_POSITION},
+    "idle_share.smooth": {spans.FWD_VELOCITY, spans.FWD_ACTUATION,
+                          spans.FWD_PASSIVE, spans.FWD_ACCELERATION,
+                          spans.EULER},
+    "idle_share.contacts": {spans.CONTACTS, spans.MAKE_EFC},
+    "idle_share.newton": {spans.NEWTON},
+    "idle_share.task": {spans.ENV_CONTROL, spans.ENV_TASK, spans.ENV_SELECT},
+    "idle_share.reset": {spans.ENV_RESET},
+}
+
+
+def _reader(name: str):
+  spec = importlib.util.spec_from_file_location(
+      "metric_" + name.replace(".", "_"), os.path.join(METRICS, name + ".py"))
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
+def _leaves(x, path=""):
+  """(path, tensor) of every tensor in a state, dataclasses and dicts
+  walked."""
+  if isinstance(x, torch.Tensor):
+    yield path, x
+  elif isinstance(x, dict):
+    for k in sorted(x):
+      yield from _leaves(x[k], f"{path}.{k}")
+  elif dataclasses.is_dataclass(x):
+    for f in dataclasses.fields(x):
+      yield from _leaves(getattr(x, f.name), f"{path}.{f.name}")
+
+
+def _outermost(events) -> list:
+  """(name, start, end) of the outermost host ranges, in start order."""
+  host = sorted((e.start_ns(), -e.start_ns() - e.duration_ns(), e.name())
+                for e in events)
+  top = []
+  for s, neg_e, n in host:
+    e = -neg_e
+    if top and s < top[-1][2]:
+      continue
+    top.append((n, s, e))
+  return top
+
+
+@pytest.fixture(scope="module")
+def env_and_state():
+  env = envs.make(TASK)
+  st = env.reset(B, "cpu")
+  action = torch.rand((B, env.action_dim),
+                      generator=torch.Generator().manual_seed(0)) * 2 - 1
+  st = env.autoreset_step(st, action)
+  return env, st, action
+
+
+@pytest.fixture(scope="module")
+def traced(env_and_state):
+  """One unprofiled and one profiled ``autoreset_step`` from the same
+  state; the profiled one records what each Newton solve returned and the
+  host syncs it made."""
+  env, st, action = env_and_state
+  plain = env.autoreset_step(st, action)
+  solves = []
+  inner = solver._newton_solve
+
+  def recorded(*args, **kw):
+    syncs = solver.newton_host_syncs.count
+    out = inner(*args, **kw)
+    solves.append((out[2], solver.newton_host_syncs.count - syncs))
+    return out
+
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(solver, "_newton_solve", recorded)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+      out = env.autoreset_step(st, action)
+  events = list(prof.profiler.kineto_results.events())
+  return {"plain": plain, "out": out, "events": events, "solves": solves,
+          "work": spans.newton_work(), "frame_skip": env.frame_skip}
+
+
+def test_no_profiler_no_span_and_nothing_kept(env_and_state, monkeypatch):
+  env, st, action = env_and_state
+
+  def refuse(name):
+    raise AssertionError(f"a record_function {name} without a profiler")
+
+  assert not spans.recording()
+  for name in spans.TOP_LEVEL + (spans.GROUP + "CAPSULE-CAPSULE",):
+    assert spans.span(name) is spans.NOOP
+  kept = [id(t) for t in spans._kept]
+  monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+  env.autoreset_step(st, action)
+  assert [id(t) for t in spans._kept] == kept
+  assert spans._stale
+
+
+def test_outermost_ranges_are_the_top_level_spans(traced):
+  names = [n for n, _, _ in _outermost(traced["events"])]
+  assert names == ([spans.ENV_CONTROL]
+                   + list(spans.SUBSTEP) * traced["frame_skip"]
+                   + [spans.ENV_TASK, spans.ENV_RESET, spans.ENV_SELECT])
+
+
+def test_group_spans_sit_inside_contacts(traced):
+  top = _outermost(traced["events"])
+  groups = [(e.name(), e.start_ns()) for e in traced["events"]
+            if e.name().startswith(spans.GROUP)]
+  assert {n for n, _ in groups} == {"contacts.PLANE-CAPSULE",
+                                    "contacts.CAPSULE-CAPSULE"}
+  assert len(groups) == 2 * traced["frame_skip"]
+  for _, start in groups:
+    outer = [n for n, s, e in top if s <= start < e]
+    assert outer == [spans.CONTACTS]
+
+
+def test_outputs_identical_with_and_without_profiler(traced):
+  plain = dict(_leaves(traced["plain"]))
+  out = dict(_leaves(traced["out"]))
+  assert plain.keys() == out.keys() and plain
+  for k in plain:
+    assert torch.equal(plain[k], out[k]), k
+
+
+def test_newton_work_is_what_the_solves_returned(traced):
+  solves = traced["solves"]
+  assert len(solves) == traced["frame_skip"]
+  useful = sum(int(it.sum()) for it, _ in solves)
+  # the batch ran 2 iterations a block, one sync a block plus the exit
+  run = sum(B * 2 * (syncs - 1) for _, syncs in solves)
+  assert run == sum(B * int(it.max()) for it, _ in solves)
+  assert traced["work"] == (useful, run)
+  assert 0 < useful <= run
+
+
+def test_newton_reader_reads_the_counter(traced):
+  useful, run = traced["work"]
+  read = _reader("newton_useful_share").read
+  assert read({"trace": {"idle_by_host_op": {}}}) == pytest.approx(
+      100.0 * useful / run)
+  assert read({}) is None
+
+
+def test_readers_list_the_documented_spans():
+  lists = {n: set(_reader(n).SPANS) for n in IDLE_READERS}
+  assert lists == IDLE_READERS
+  union = set().union(*lists.values())
+  assert sum(map(len, lists.values())) == len(union)
+  assert union == set(spans.TOP_LEVEL)
+  assert _reader("idle_share.outside_spans").SPANS == spans.TOP_LEVEL
+
+
+IDLE = {spans.ENV_CONTROL: 0.011, spans.FWD_POSITION: 0.12,
+        spans.FWD_VELOCITY: 0.03, spans.FWD_ACTUATION: 0.02,
+        spans.FWD_PASSIVE: 0.01, spans.FWD_ACCELERATION: 0.025,
+        spans.CONTACTS: 0.07, spans.MAKE_EFC: 0.015, spans.NEWTON: 0.4,
+        spans.EULER: 0.018, spans.ENV_TASK: 0.009, spans.ENV_RESET: 0.035,
+        spans.ENV_SELECT: 0.004, "host: no op": 0.02, "aten::clone": 0.013}
+TRACE = {"busy_s": 1.6 - sum(IDLE.values()), "window_s": 1.6,
+         "launches": 100, "kernel_s": {}, "idle_by_host_op": IDLE}
+
+
+@pytest.mark.parametrize("name", sorted(IDLE_READERS) + [
+    "idle_share.outside_spans"])
+def test_idle_reader_share(name):
+  mine = IDLE_READERS.get(name)
+  idle = sum(v for k, v in IDLE.items()
+             if (k in mine if mine else k not in spans.TOP_LEVEL))
+  got = _reader(name).read({"trace": TRACE, "substeps": 10})
+  assert got == pytest.approx(100.0 * idle / TRACE["window_s"])
+  assert _reader(name).read({"trace": {
+      **TRACE, "idle_by_host_op": {"aten::mul": 0.5, "host: no op": 0.2}}}) \
+      is None
+  assert _reader(name).read({}) is None
+
+
+def test_idle_readers_sum_to_the_idle_share():
+  ctx = {"trace": TRACE, "substeps": 10}
+  total = sum(_reader(n).read(ctx) for n in list(IDLE_READERS)
+              + ["idle_share.outside_spans"])
+  assert total == pytest.approx(_reader("device_idle_share.env").read(ctx))

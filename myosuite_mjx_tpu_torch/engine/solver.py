@@ -14,6 +14,15 @@ env is live. Here that is a Python loop over blocks of two with a per-env
 live mask updated only at block ends, capped by ``opt.solver_iterations``.
 Each block costs one host sync (``live.any()``); ``newton_host_syncs``
 counts them.
+
+On the card each block is one replay of a CUDA graph (``_Staged``): the
+solve's inputs are copied into static buffers kept per shape, and the
+warm-start prologue and one block (``_BLOCK`` iterations, the per-env
+merge, the new live mask and its ``any``) are captured once each. The host
+loop replays the block and reads the flag, one sync a block as before.
+The graphs hold the eager code's kernels, so each env's exit and every
+result are the same bit for bit. The CPU, inputs that require grad and a
+capture already under way take the eager loop.
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ import torch
 from myosuite_mjx_tpu_torch.engine import collision, constraint
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DSBL_CONTACT, DeviceModel
-from myosuite_mjx_tpu_torch.ops import linalg
+from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
 from myosuite_mjx_tpu_torch.utils import spans
 
 _BLOCK = 2   # Newton iterations between two batch-wide exit tests
@@ -36,14 +45,16 @@ def _dot(a, b):
   return (a * b).sum(-1)
 
 
-def _newton_solve(m: DeviceModel, d: Data, J, aref, D, is_eq,
-                  iterations: int, ls_iterations: int):
-  """Returns (qacc [B, nv], force [B, R], iterations run [B])."""
-  qM = d.qM
-  x0 = d.qacc_smooth
-  B = x0.shape[0]
-  tol = m.opt.tolerance * max(m.opt.meaninertia, 1e-12) * max(m.nv, 1)
-  ls_tol = m.opt.ls_tolerance
+def _steps(inputs, iterations: int, ls_iterations: int, tol: float,
+           ls_tol: float):
+  """The solve's arithmetic over its inputs (qM, qacc_smooth,
+  qacc_warmstart, J, aref, D, is_eq): (start, nt_iter, is_live, weights).
+
+  ``start()`` is the warm-start prologue's carry (qacc, jar, M dx, cost,
+  last improvement, iterations); ``is_live(carry, out)`` the per-env test
+  made at block ends.
+  """
+  qM, x0, ws, J, aref, D, is_eq = inputs
   Jt = J.transpose(-1, -2)
 
   def weights(jar):
@@ -114,18 +125,53 @@ def _newton_solve(m: DeviceModel, d: Data, J, aref, D, is_eq,
             torch.where(take, new_cost, prev_cost),
             improvement, it + 1)
 
-  ws = d.qacc_warmstart
-  start = torch.where((cost(ws) < cost(x0))[:, None], ws, x0)
-  jar0 = _mv(J, start) - aref
-  qMdx0 = _mv(qM, start - x0)
-  c0 = 0.5 * (_dot(start - x0, qMdx0) + (weights(jar0) * jar0 * jar0).sum(-1))
-  carry = (start, jar0, qMdx0, c0, torch.full_like(c0, float("inf")),
-           torch.zeros((B,), dtype=torch.int32, device=x0.device))
+  def start():
+    st = torch.where((cost(ws) < cost(x0))[:, None], ws, x0)
+    jar0 = _mv(J, st) - aref
+    qMdx0 = _mv(qM, st - x0)
+    c0 = 0.5 * (_dot(st - x0, qMdx0) + (weights(jar0) * jar0 * jar0).sum(-1))
+    return (st, jar0, qMdx0, c0, torch.full_like(c0, float("inf")),
+            torch.zeros((x0.shape[0],), dtype=torch.int32, device=x0.device))
 
-  def is_live(c):
-    return (c[5] < iterations) & (c[4] > tol)
+  def is_live(c, out=None):
+    return torch.bitwise_and(c[5] < iterations, c[4] > tol, out=out)
 
+  return start, nt_iter, is_live, weights
+
+
+def _merge(live, new, carry, out=None):
+  """``torch.where(live, new, carry)`` on each leaf: an env that was live
+  at the block's start takes the block's carry."""
+  B = live.shape[0]
+  if out is None:
+    out = (None,) * len(carry)
+  return tuple(torch.where(live.view((B,) + (1,) * (n.ndim - 1)), n, c, out=o)
+               for n, c, o in zip(new, carry, out))
+
+
+def _problem(m: DeviceModel, d: Data, J, aref, D, is_eq, iterations: int,
+             ls_iterations: int):
+  """(inputs, args) of one solve, as ``_steps`` and ``_Staged`` take them:
+  the tensors, then the iteration caps and the two tolerances."""
+  tol = m.opt.tolerance * max(m.opt.meaninertia, 1e-12) * max(m.nv, 1)
+  return ((d.qM, d.qacc_smooth, d.qacc_warmstart, J, aref, D, is_eq),
+          (iterations, ls_iterations, tol, m.opt.ls_tolerance))
+
+
+def _newton_solve(m: DeviceModel, d: Data, J, aref, D, is_eq,
+                  iterations: int, ls_iterations: int):
+  """Returns (qacc [B, nv], force [B, R], iterations run [B]).
+
+  On the card the blocks replay a CUDA graph (``_graph_solve``); the
+  returned tensors are fresh either way.
+  """
+  inputs, args = _problem(m, d, J, aref, D, is_eq, iterations, ls_iterations)
+  if _graphable(inputs):
+    return _graph_solve(inputs, args)
+  start, nt_iter, is_live, weights = _steps(inputs, *args)
+  carry = start()
   live = is_live(carry)
+  blocks = 0
   while True:
     newton_host_syncs.count += 1
     if not bool(live.any()):
@@ -133,11 +179,151 @@ def _newton_solve(m: DeviceModel, d: Data, J, aref, D, is_eq,
     new = carry
     for _ in range(_BLOCK):
       new = nt_iter(new)
-    carry = tuple(torch.where(live.view((B,) + (1,) * (n.ndim - 1)), n, c)
-                  for n, c in zip(new, carry))
+    carry = _merge(live, new, carry)
     live = is_live(carry)
+    blocks += 1
+  spans.newton_blocks(blocks, graphed=False)
   qacc, jar = carry[0], carry[1]
   return qacc, -weights(jar) * jar, carry[5]
+
+
+class _Staged:
+  """Static buffers of one key: a copy of the solve's inputs, the carry,
+  the live mask and its ``any`` (the flag the host reads).
+
+  ``prologue`` and ``block`` read and write only these buffers, so a CUDA
+  graph captured from each replays on whatever ``stage`` copied in. They
+  launch the eager loop's kernels, the carry's merge written in place.
+  """
+
+  def __init__(self, inputs, args):
+    self.inputs = tuple(torch.empty_like(x) for x in inputs)
+    x0, J = self.inputs[1], self.inputs[3]
+    B, R = J.shape[:2]
+    self._start, self._nt_iter, self._is_live, self._weights = _steps(
+        self.inputs, *args)
+    self.carry = (torch.empty_like(x0), x0.new_empty((B, R)),
+                  torch.empty_like(x0), x0.new_empty((B,)),
+                  x0.new_empty((B,)), x0.new_empty((B,), dtype=torch.int32))
+    self.live = x0.new_empty((B,), dtype=torch.bool)
+    self.flag = x0.new_empty((), dtype=torch.bool)
+    self.stream = torch.cuda.Stream(x0.device) if x0.is_cuda else None
+    self.graphs = None      # (prologue, block) once captured
+
+  def stage(self, inputs) -> None:
+    for s, x in zip(self.inputs, inputs):
+      s.copy_(x)
+
+  def _test(self) -> None:
+    self._is_live(self.carry, out=self.live)
+    torch.any(self.live, out=self.flag)
+
+  def prologue(self) -> None:
+    for s, v in zip(self.carry, self._start()):
+      s.copy_(v)
+    self._test()
+
+  def block(self) -> None:
+    new = self.carry
+    for _ in range(_BLOCK):
+      new = self._nt_iter(new)
+    _merge(self.live, new, self.carry, out=self.carry)
+    self._test()
+
+  def run(self, prologue, block) -> int:
+    """The host loop on the staged inputs: ``prologue`` and ``block`` are
+    this object's methods or their graphs' replays. One sync a block plus
+    the exit, as the eager loop; returns the blocks run."""
+    prologue()
+    blocks = 0
+    while True:
+      newton_host_syncs.count += 1
+      if not bool(self.flag):
+        return blocks
+      block()
+      blocks += 1
+
+  def outputs(self):
+    """(qacc, force, iterations), none of them a static buffer: qacc is
+    the next substep's warm start, which the next ``stage`` overwrites."""
+    qacc, jar, it = self.carry[0], self.carry[1], self.carry[5]
+    return qacc.clone(), -self._weights(jar) * jar, it.clone()
+
+
+# the SPD kernels' launch counters (Python-side: a replay runs no Python)
+_COUNTERS = (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda)
+
+
+class _Graph:
+  """A CUDA graph of ``fn``, captured on ``stream``; calling it replays the
+  graph and adds the SPD launches it holds to their counters (the capture,
+  which launches nothing, takes its count back)."""
+
+  def __init__(self, fn, stream):
+    before = [c.launches for c in _COUNTERS]
+    self.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(self.graph, stream=stream,
+                          capture_error_mode="thread_local"):
+      fn()
+    self.launches = [c.launches - b for c, b in zip(_COUNTERS, before)]
+    for c, n in zip(_COUNTERS, self.launches):
+      c.launches -= n
+
+  def __call__(self) -> None:
+    self.graph.replay()
+    for c, n in zip(_COUNTERS, self.launches):
+      c.launches += n
+
+
+# _Staged by key, the most recently used last; the oldest go past _KEEP
+_staged: dict = {}
+_KEEP = 8
+
+
+def _graphable(inputs) -> bool:
+  """Whether the solve may replay a graph: CUDA inputs, none requiring
+  grad, and no capture already under way on the current stream."""
+  return (inputs[0].is_cuda and not any(x.requires_grad for x in inputs)
+          and not torch.cuda.is_current_stream_capturing())
+
+
+def _key(inputs, args) -> tuple:
+  """What a graph bakes in: device, dtype, B, R, nv, the solver's scalars
+  and the float32 matmul precision."""
+  J = inputs[3]
+  return ((J.device, J.dtype) + tuple(J.shape) + tuple(args)
+          + (torch.get_float32_matmul_precision(),))
+
+
+def _graph_solve(inputs, args):
+  """The Newton loop on the card, one graph replay a block.
+
+  The first solve at a key runs the staged code eagerly on the side stream
+  that the capture then uses (the warm-up); the next captures the prologue
+  and the block, and every solve from there replays them.
+  """
+  key = _key(inputs, args)
+  st = _staged.pop(key, None)
+  warm = st is not None
+  if st is None:
+    st = _Staged(inputs, args)
+  _staged[key] = st
+  while len(_staged) > _KEEP:
+    del _staged[next(iter(_staged))]
+  if warm:
+    if st.graphs is None:
+      st.graphs = (_Graph(st.prologue, st.stream), _Graph(st.block, st.stream))
+    st.stage(inputs)
+    blocks = st.run(*st.graphs)
+  else:
+    current = torch.cuda.current_stream(st.stream.device)
+    st.stream.wait_stream(current)
+    with torch.cuda.stream(st.stream):
+      st.stage(inputs)
+      blocks = st.run(st.prologue, st.block)
+    current.wait_stream(st.stream)
+  spans.newton_blocks(blocks, graphed=warm)
+  return st.outputs()
 
 
 class _SyncCounter:

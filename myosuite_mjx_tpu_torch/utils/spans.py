@@ -27,7 +27,9 @@ with the trace's readers (``benchmark/metrics/idle_share.*.py``,
 ``tools/profile_step.py``).
 
 The Newton counter keeps each solve's per-env iteration counts [B] (no sync,
-no launch) and reduces them only when ``newton_work`` reads them.
+no launch) and reduces them only when ``newton_work`` reads them. Beside
+it, ``newton_graph_blocks`` counts the Newton blocks run from a CUDA graph
+and all Newton blocks (``engine/solver.py``).
 """
 from __future__ import annotations
 
@@ -69,22 +71,43 @@ def span(name: str):
 # began (a profiler is process-wide, and so is what it records); each
 # holds B int32, far less than the profiler's own events of that solve
 _kept: list = []
+# Newton blocks since the latest recording began: [from a graph, all]
+_blocks = [0, 0]
 _stale = True     # no profiler recorded at the last solve
 
 
-def newton_solved(iterations: torch.Tensor) -> None:
-  """Keep one solve's per-env iteration counts while a profiler records.
-
-  The first solve of a recording drops what an earlier recording kept.
-  """
+def _keeping() -> bool:
+  """Whether a profiler records; the first call of a recording drops what
+  an earlier recording kept."""
   global _stale
   if not recording():
     _stale = True
-    return
+    return False
   if _stale:
     _kept.clear()
+    _blocks[:] = [0, 0]
     _stale = False
-  _kept.append(iterations)
+  return True
+
+
+def newton_solved(iterations: torch.Tensor) -> None:
+  """Keep one solve's per-env iteration counts while a profiler records."""
+  if _keeping():
+    _kept.append(iterations)
+
+
+def newton_blocks(run: int, graphed: bool) -> None:
+  """Count one solve's ``run`` blocks, as run from a CUDA graph or not,
+  while a profiler records."""
+  if _keeping():
+    _blocks[0] += run if graphed else 0
+    _blocks[1] += run
+
+
+def newton_graph_blocks() -> tuple[int, int]:
+  """(Newton blocks run from a CUDA graph, all Newton blocks) over the
+  solves of the latest recording."""
+  return _blocks[0], _blocks[1]
 
 
 def newton_work() -> tuple[int, int]:

@@ -16,7 +16,9 @@ H100), with and without the factor, at one system, B = 16, 4096 and 4097;
 misaligned views (the plain loads); the clamp cases (pivots that reach 0 or
 go below tiny); and the entry points that run through it: a float64
 ``MyoEnv`` and ``Physics`` on chain72 (nv 72), each against the CPU.
-Last, the rest of the port on the card against the CPU: the reflex
+The Newton solve replayed from its CUDA graphs against the same solves
+run eagerly, bit for bit, in float32 and float64. Last, the rest of the
+port on the card against the CPU: the reflex
 controller's update, the gym adapter, the CNN encoder, and the
 data-parallel learners at world size 1 on NCCL against the plain step.
 """
@@ -313,6 +315,69 @@ def test_chain72_physics_runs_through_the_general_kernel(dtype):
   bound = 1e-4 if dtype == torch.float32 else 1e-8
   np.testing.assert_allclose(res["cuda"].qpos.double().cpu().numpy(),
                              res["cpu"].qpos.numpy(), rtol=0, atol=bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_newton_graph_replay_matches_eager_on_card(dtype, monkeypatch):
+  """The Newton solves of two control steps of hand23 pose at B 4096
+  ([4096, 119, 23]) on the card, each run eagerly and through the graph
+  path from an empty cache (the warm-up on the side stream, the capture,
+  then replays): qacc, force and per-env iterations bit for bit, the same
+  host syncs, the same SPD launches counted (float32 in the register
+  kernel's counter, float64 in the general kernel's), and returned
+  tensors that are not the graph's static buffers."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  from myosuite_mjx_tpu_torch.engine import solver
+  batch = 4096
+  solves = []
+  inner = solver._newton_solve
+
+  def recorded(*args):
+    solves.append(args)
+    return inner(*args)
+
+  benv = BatchedEnv(PoseEnv(os.path.join(ASSETS, "hand23.npz"), dtype=dtype,
+                            **HAND_POSE_FIXED), batch, "cuda")
+  g = torch.Generator(device="cuda").manual_seed(0)
+  st = benv.init()
+  with monkeypatch.context() as mp:
+    mp.setattr(solver, "_newton_solve", recorded)
+    for _ in range(2):
+      a = torch.rand((batch, benv.env.action_dim), generator=g,
+                     device="cuda", dtype=dtype) * 2 - 1
+      st = benv.step(st, a)
+  assert len(solves) >= 3 and solves[0][2].shape == (batch, 119, 23)
+
+  def run(args, graph: bool):
+    before = [c.launches for c in solver._COUNTERS]
+    syncs = solver.newton_host_syncs.count
+    with monkeypatch.context() as mp:
+      if not graph:
+        mp.setattr(solver, "_graphable", lambda inputs: False)
+      out = solver._newton_solve(*args)
+    torch.cuda.synchronize()
+    return (out, [c.launches - b for c, b in zip(solver._COUNTERS, before)],
+            solver.newton_host_syncs.count - syncs)
+
+  solver._staged.clear()
+  worst = 0.0
+  for args in solves:
+    eager, eager_launches, eager_syncs = run(args, graph=False)
+    out, launches, syncs = run(args, graph=True)
+    for a, b, what in zip(out, eager, ("qacc", "force", "iterations")):
+      worst = max(worst, float((a.double() - b.double()).abs().max()))
+      assert torch.equal(a, b), what
+    assert launches == eager_launches and sum(launches) > 0
+    assert syncs == eager_syncs
+  (staged,) = solver._staged.values()
+  assert staged.graphs is not None
+  for t in out:
+    assert t.data_ptr() not in {s.data_ptr() for s in staged.carry}
+  print(f"newton graph replay vs eager, {dtype}, {len(solves)} solves: "
+        f"largest difference {worst}")
 
 
 @pytest.mark.gpu

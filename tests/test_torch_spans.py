@@ -5,8 +5,9 @@ Without a profiler a span is one shared no-op and the counter keeps
 nothing. Under ``torch.profiler`` the outermost host ranges of one
 ``autoreset_step`` are the documented top-level spans in order, the
 narrowphase group spans sit inside ``engine.contacts``, the outputs are
-bit-identical to an unprofiled step, and the counter holds what the Newton
-solves returned.
+bit-identical to an unprofiled step, the counter holds what the Newton
+solves returned, and the block counter counts every block, none from a
+CUDA graph (the CPU runs the eager loop).
 """
 from __future__ import annotations
 
@@ -104,7 +105,8 @@ def traced(env_and_state):
       out = env.autoreset_step(st, action)
   events = list(prof.profiler.kineto_results.events())
   return {"plain": plain, "out": out, "events": events, "solves": solves,
-          "work": spans.newton_work(), "frame_skip": env.frame_skip}
+          "work": spans.newton_work(), "blocks": spans.newton_graph_blocks(),
+          "frame_skip": env.frame_skip}
 
 
 def test_no_profiler_no_span_and_nothing_kept(env_and_state, monkeypatch):
@@ -167,6 +169,25 @@ def test_newton_reader_reads_the_counter(traced):
   assert read({"trace": {"idle_by_host_op": {}}}) == pytest.approx(
       100.0 * useful / run)
   assert read({}) is None
+
+
+def test_newton_blocks_counted_and_none_from_a_graph_on_the_cpu(traced):
+  # one sync a block plus the exit; the CPU runs the eager loop
+  blocks = sum(syncs - 1 for _, syncs in traced["solves"])
+  assert traced["blocks"] == (0, blocks) and blocks > 0
+
+
+def test_newton_graph_reader_reads_the_counter(monkeypatch):
+  read = _reader("newton_graph_share").read
+  ctx = {"trace": {"idle_by_host_op": {}}}
+  monkeypatch.setattr(spans, "newton_graph_blocks", lambda: (7, 8))
+  assert read(ctx) == pytest.approx(87.5)
+  assert read({}) is None
+  monkeypatch.setattr(spans, "newton_graph_blocks", lambda: (0, 0))
+  assert read(ctx) is None
+  # a program without the counter (the parent of the graph path)
+  monkeypatch.delattr(spans, "newton_graph_blocks")
+  assert read(ctx) is None
 
 
 def test_readers_list_the_documented_spans():

@@ -554,6 +554,72 @@ _TERRAIN_POS = (0.0, -0.3535, 0.0)
 _GROUND_BITS = 1
 _FOOT_BITS = 2
 
+# MyoLeg's knee: the joints coupled to ``knee_angle_<s>`` by joint
+# equalities, as name, type, axis (the left leg's), range and the quartic
+# polycoef against the knee angle; the patella carries the beta ones, the
+# tibia the rest
+_KNEE_PATELLA = (
+    ("knee_angle_{s}_beta_translation2", "slide", (0, 0, 1), (-0.05, 0.05),
+     (0.0, -0.012, 0.004, 0.0, 0.0)),
+    ("knee_angle_{s}_beta_translation1", "slide", (1, 0, 0), (-0.05, 0.05),
+     (0.0, 0.015, -0.005, 0.0, 0.0)),
+    ("knee_angle_{s}_beta_rotation1", "hinge", (0, 1, 0), (-1.0, 1.0),
+     (0.0, 0.45, -0.1, 0.0, 0.0)),
+)
+_KNEE_TIBIA = (
+    ("knee_angle_{s}_translation2", "slide", (0, 0, 1), (-0.05, 0.05),
+     (0.0, -0.004, 0.0015, 0.0, 0.0)),
+    ("knee_angle_{s}_translation1", "slide", (1, 0, 0), (-0.05, 0.05),
+     KNEE_POLYCOEF),
+    ("knee_angle_{s}_rotation2", "hinge", (1, 0, 0), (-0.3, 0.3),
+     (0.0, 0.05, -0.02, 0.0, 0.0)),
+    ("knee_angle_{s}_rotation3", "hinge", (0, 0, 1), (-0.3, 0.3),
+     (0.0, -0.04, 0.015, 0.0, 0.0)),
+)
+
+
+def _knee_joints(table: tuple, side: str) -> tuple:
+  """``table``'s joints for ``side``: the right leg mirrors the left in
+  the sagittal plane (a slide's y and a hinge's x and z axis flip)."""
+  if side == "l":
+    return tuple((n.format(s=side), *rest) for n, *rest in table)
+  mirror = lambda kind, a: ((a[0], -a[1], a[2]) if kind == "slide"
+                            else (-a[0], a[1], -a[2]))
+  return tuple((n.format(s=side), kind, mirror(kind, axis), rng, coef)
+               for n, kind, axis, rng, coef in table)
+
+
+def _coupled_knee(side: str, patella_geom: str) -> tuple[str, str, str]:
+  """MyoLeg's knee of one leg, as ``_leg`` takes it: (the tibia's joints:
+  ``translation2``, ``translation1``, ``knee_angle``, ``rotation2``,
+  ``rotation3``; the ``patella_<s>`` body in the femur with the three
+  beta joints and the geom ``patella_geom``; the seven joint equalities
+  against the knee angle)."""
+  patella_j = _knee_joints(_KNEE_PATELLA, side)
+  tibia_j = _knee_joints(_KNEE_TIBIA, side)
+  coupled = lambda joints, extra: "".join(
+      f"\n          {_joint_xml(n, k, a, r, extra)}"
+      for n, k, a, r, _ in joints)
+  knee = (coupled(tibia_j[:2], ' damping="20" armature="0.02"')
+          + f'\n          <joint name="knee_angle_{side}" axis="0 1 0" '
+            'range="0 2.0" damping="4" stiffness="300" armature="0.01"/>'
+          + coupled(tibia_j[2:], ' damping="2" armature="0.01"'))
+  patella = f"""
+        <body name="patella_{side}" pos="{_f(0.05, 0, -_FEMUR_LEN + 0.02)}">
+          <inertial pos="0 0 0" mass="0.05" diaginertia="0.00001 0.00001 0.00001"/>{coupled(patella_j, ' damping="1" armature="0.005"')}
+          <geom name="{patella_geom}" type="sphere" size="0.02" contype="0" conaffinity="0"/>
+        </body>"""
+  equalities = "\n    ".join(
+      f'<joint joint1="{n}" joint2="knee_angle_{side}" polycoef="{_f(*c)}"/>'
+      for n, *_, c in patella_j + tibia_j)
+  return knee, patella, equalities
+
+
+def _joint_xml(name, kind, axis, rng, extra="") -> str:
+  return (f'<joint name="{name}" type="{kind}" axis="{_f(*axis)}" '
+          f'range="{_f(*rng)}"{extra}/>')
+
+
 # muscle templates: name, force (N), then the path as (body, site pos)
 # points and ("wrap", geom, sidesite or "") entries. Bodies are named
 # without the side suffix; y coordinates are for the left leg and mirror
@@ -733,34 +799,41 @@ def _leg(side: str, sites: dict, knee: str = "", patella: str = "",
       </body>"""
 
 
+def _couple(q: float, coef) -> float:
+  return sum(c * q ** i for i, c in enumerate(coef))
+
+
 def _leg_key(hip=(0.0, 0.0), knee=(0.0, 0.0), ankle=(0.0, 0.0),
-             drop: float = 0.0) -> list[float]:
+             drop: float = 0.0, myoleg_knee: bool = False) -> list[float]:
   """A keyframe's qpos: the pelvis ``drop`` m under the standing height,
   facing +y; hip flexion, knee and ankle angles per side (left, right);
-  each knee's translation on its coupling curve."""
-  def poly(q):
-    return sum(c * q ** i for i, c in enumerate(KNEE_POLYCOEF))
+  each knee's coupled joints on their curves (the one slide, or with
+  ``myoleg_knee`` MyoLeg's seven, in qpos order)."""
   qpos = [0.0, 0.0, _PELVIS_HEIGHT - drop, 0.70710678, 0.0, 0.0, 0.70710678]
   for i in range(2):
-    qpos += [hip[i], 0.0, 0.0, knee[i], poly(knee[i]), ankle[i], 0.0, 0.0]
+    if myoleg_knee:
+      beta = [_couple(knee[i], c) for *_, c in _KNEE_PATELLA]
+      t2, t1, r2, r3 = (_couple(knee[i], c) for *_, c in _KNEE_TIBIA)
+      qpos += [hip[i], 0.0, 0.0, *beta, t2, t1, knee[i], r2, r3, ankle[i],
+               0.0, 0.0]
+    else:
+      qpos += [hip[i], 0.0, 0.0, knee[i], _couple(knee[i], KNEE_POLYCOEF),
+               ankle[i], 0.0, 0.0]
   return qpos
 
 
 # standing; a slight crouch; and two mid-stride poses (left leg forward,
 # then right), whose pelvis drop keeps the stance foot on the ground
-_LEG_KEYS = (
-    _leg_key(),
-    _leg_key(hip=(0.15, 0.15), knee=(0.3, 0.3), ankle=(0.15, 0.15),
-             drop=0.0087),
-    _leg_key(hip=(0.3, -0.2), knee=(0.15, 0.05), ankle=(0.05, 0.15),
-             drop=0.0016),
-    _leg_key(hip=(-0.2, 0.3), knee=(0.05, 0.15), ankle=(0.15, 0.05),
-             drop=0.0016),
+_LEG_POSES = (
+    dict(),
+    dict(hip=(0.15, 0.15), knee=(0.3, 0.3), ankle=(0.15, 0.15), drop=0.0087),
+    dict(hip=(0.3, -0.2), knee=(0.15, 0.05), ankle=(0.05, 0.15), drop=0.0016),
+    dict(hip=(-0.2, 0.3), knee=(0.05, 0.15), ankle=(0.15, 0.05), drop=0.0016),
 )
 
 
 def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False,
-                     reflex: bool = False) -> str:
+                     reflex: bool = False, myoleg_knee: bool = False) -> str:
   """MJCF text of the synthetic two-leg scene, MyoLeg's names and width.
 
   - ``pelvis`` on a free joint (a ``pelvis`` site at its origin) with the
@@ -786,7 +859,13 @@ def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False,
   - ``chasetag``: one mocap body ``opponent`` that collides with nothing;
   - ``reflex`` (legs80_reflex): the 40 muscles per side take MyoLeg's
     names (``REFLEX_MUSCLES``, on the templates' paths), so the reflex
-    controller (``agents/reflex.py``) finds its muscle groups.
+    controller (``agents/reflex.py``) finds its muscle groups;
+  - ``myoleg_knee`` (legs80_knee, legs16_knee): each knee is MyoLeg's,
+    seven joints coupled to ``knee_angle_<s>`` by joint equalities in
+    place of the one slide (``_coupled_knee``, osl54's left knee on both
+    legs): ``knee_angle_<s>_translation1/2`` and ``_rotation2/3`` on the
+    tibia, the three ``_beta_`` joints on a ``patella_<s>`` body; nq 35,
+    nv 34, 14 equalities.
   """
   names = REFLEX_MUSCLES if reflex else None
   if reflex:
@@ -797,7 +876,9 @@ def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False,
   legs, tendons, actuators = [], [], []
   for side in ("l", "r"):
     sites, ten, act = _leg_muscles(side, muscles_per_leg, names)
-    legs.append(_leg(side, sites))
+    knee, patella, _ = (_coupled_knee(side, f"patella_bone_{side}")
+                        if myoleg_knee else ("", "", ""))
+    legs.append(_leg(side, sites, knee=knee, patella=patella))
     tendons.append(ten)
     actuators.append(act)
   pelvis_sites = "".join(
@@ -810,16 +891,18 @@ def legs_fixture_xml(muscles_per_leg: int = 40, chasetag: bool = False,
       for s, m in (("l", 1.0), ("r", -1.0)))
   nrow, ncol, size = _HFIELD
   keys = "\n    ".join(
-      f'<key qpos="{_f(*q)}"/>' for q in _LEG_KEYS)
+      f'<key qpos="{_f(*_leg_key(**pose, myoleg_knee=myoleg_knee))}"/>'
+      for pose in _LEG_POSES)
   opponent = ("""
     <body name="opponent" mocap="true" pos="2 2 0.9">
       <geom name="opponent_body" type="capsule" fromto="0 0 -0.5 0 0 0.5" size="0.15" contype="0" conaffinity="0"/>
     </body>""" if chasetag else "")
   equalities = "\n    ".join(
+      _coupled_knee(s, "")[2] if myoleg_knee else
       f'<joint joint1="knee_angle_translation_{s}" joint2="knee_angle_{s}" '
       f'polycoef="{_f(*KNEE_POLYCOEF)}"/>' for s in "lr")
   name = (f"legs{2 * muscles_per_leg}" + ("_chasetag" if chasetag else "")
-          + ("_reflex" if reflex else ""))
+          + ("_reflex" if reflex else "") + ("_knee" if myoleg_knee else ""))
   return f"""<mujoco model="{name}">
   <compiler angle="radian" autolimits="true"/>
   <option timestep="0.002" iterations="100" ls_iterations="50"/>
@@ -1412,27 +1495,9 @@ def bimanual_fixture_xml(digits: int = 5) -> str:
 # the prosthesis's convex hulls collide with the floor plane only: the
 # reference has no hfield-mesh pair, so the terrain leaves them out
 _HULL_BIT = 1 << 2
-# the left knee's coupled joints: name, type, axis, range and the quartic
-# polycoef of the joint equality against knee_angle_l (MyoLeg's knee
-# couples these to the knee angle); the patella carries the beta ones
-_OSL_PATELLA = (
-    ("knee_angle_l_beta_translation2", "slide", (0, 0, 1), (-0.05, 0.05),
-     (0.0, -0.012, 0.004, 0.0, 0.0)),
-    ("knee_angle_l_beta_translation1", "slide", (1, 0, 0), (-0.05, 0.05),
-     (0.0, 0.015, -0.005, 0.0, 0.0)),
-    ("knee_angle_l_beta_rotation1", "hinge", (0, 1, 0), (-1.0, 1.0),
-     (0.0, 0.45, -0.1, 0.0, 0.0)),
-)
-_OSL_TIBIA = (
-    ("knee_angle_l_translation2", "slide", (0, 0, 1), (-0.05, 0.05),
-     (0.0, -0.004, 0.0015, 0.0, 0.0)),
-    ("knee_angle_l_translation1", "slide", (1, 0, 0), (-0.05, 0.05),
-     KNEE_POLYCOEF),
-    ("knee_angle_l_rotation2", "hinge", (1, 0, 0), (-0.3, 0.3),
-     (0.0, 0.05, -0.02, 0.0, 0.0)),
-    ("knee_angle_l_rotation3", "hinge", (0, 0, 1), (-0.3, 0.3),
-     (0.0, -0.04, 0.015, 0.0, 0.0)),
-)
+# the left knee's coupled joints (MyoLeg's knee)
+_OSL_PATELLA = _knee_joints(_KNEE_PATELLA, "l")
+_OSL_TIBIA = _knee_joints(_KNEE_TIBIA, "l")
 # every muscle of the OSL scene by its MyoSuite name (without the side) ->
 # the two-leg scene's template whose path it takes; the k-th use of a
 # template on a side shifts its sites, as in ``_leg_muscles``
@@ -1472,11 +1537,6 @@ def _prism_vertices(radius: float, half: float) -> str:
   verts = [(radius * math.cos(a), y, radius * math.sin(a))
            for y in (-half, half) for a in ang]
   return " ".join(_f(*v) for v in verts)
-
-
-def _joint_xml(name, kind, axis, rng, extra="") -> str:
-  return (f'<joint name="{name}" type="{kind}" axis="{_f(*axis)}" '
-          f'range="{_f(*rng)}"{extra}/>')
 
 
 def _osl_muscles() -> tuple[dict, str, str]:
@@ -1566,10 +1626,6 @@ def _osl_joint_order() -> list[str]:
                  "osl_knee_angle_r", "osl_ankle_angle_r"]
 
 
-def _couple(q: float, coef) -> float:
-  return sum(c * q ** i for i, c in enumerate(coef))
-
-
 def _osl_pose(joints: dict) -> dict:
   """Joint values by name with the left knee's coupled joints set on
   their curves from ``knee_angle_l`` (0 for joints not given)."""
@@ -1632,19 +1688,7 @@ def osl_fixture_xml() -> str:
   """
   sites, tendons, muscles = _osl_muscles()
   leg_sites = {b: s for (side, b), s in sites.items() if side == "l"}
-  coupled = lambda joints, extra: "".join(
-      f"\n          {_joint_xml(n, k, a, r, extra)}"
-      for n, k, a, r, _ in joints)
-  tibia = _OSL_TIBIA[:2]
-  knee = (coupled(tibia, ' damping="20" armature="0.02"')
-          + '\n          <joint name="knee_angle_l" axis="0 1 0" range="0 2.0" '
-            'damping="4" stiffness="300" armature="0.01"/>'
-          + coupled(_OSL_TIBIA[2:], ' damping="2" armature="0.01"'))
-  patella = f"""
-        <body name="patella_l" pos="{_f(0.05, 0, -_FEMUR_LEN + 0.02)}">
-          <inertial pos="0 0 0" mass="0.05" diaginertia="0.00001 0.00001 0.00001"/>{coupled(_OSL_PATELLA, ' damping="1" armature="0.005"')}
-          <geom name="patella_bone" type="sphere" size="0.02" contype="0" conaffinity="0"/>
-        </body>"""
+  knee, patella, equalities = _coupled_knee("l", "patella_bone")
   left = _leg("l", leg_sites, knee=knee, patella=patella, btm=True)
   pelvis_sites = sites.get(("l", "pelvis"), "") + sites.get(("r", "pelvis"),
                                                             "")
@@ -1653,9 +1697,6 @@ def osl_fixture_xml() -> str:
       <geom name="hip_wrap_{s}" type="sphere" pos="{_f(_LEG_HIP[0], m * _LEG_HIP[1], _LEG_HIP[2])}" size="0.035" contype="0" conaffinity="0"/>
       <site name="hip_front_{s}" pos="{_f(0.07, m * _LEG_HIP[1], _LEG_HIP[2])}"/>"""
       for s, m in (("l", 1.0), ("r", -1.0)))
-  equalities = "\n    ".join(
-      f'<joint joint1="{n}" joint2="knee_angle_l" polycoef="{_f(*c)}"/>'
-      for n, *_, c in _OSL_PATELLA + _OSL_TIBIA)
   motors = "\n    ".join(
       f'<motor name="osl_{j}_torque_actuator" joint="osl_{j}_angle_r" '
       f'gear="{g:g}" ctrlrange="-1 1"/>'

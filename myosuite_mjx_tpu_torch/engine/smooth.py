@@ -205,6 +205,10 @@ class _TreeSpec:
     self.free = by_type(JointType.FREE)
     self.ancestor_mask = m.tensor(_ancestor_mask(h))
     self.body_dof_mask = m.tensor(_build_body_dof_mask(h))
+    # [nbody, nv]: 1 where the dof is the body's own
+    own = np.zeros((h.nbody, h.nv))
+    own[np.asarray(h.dof_bodyid), np.arange(h.nv)] = 1.0
+    self.body_own_dofs = m.tensor(own)
 
 
 def tree_spec(m: DeviceModel) -> _TreeSpec:
@@ -444,8 +448,11 @@ def rne(m: DeviceModel, cinert, cdof, cdof_dot, cvel, qvel) -> torch.Tensor:
   gravity = m.tensor(m.opt.gravity)
   if m.opt.disableflags & DSBL_GRAVITY:
     gravity = torch.zeros_like(gravity)
-  dotsum = cdof.new_zeros((B, m.nbody, 6))
-  dotsum.index_add_(1, m.dof_bodyid, cdof_dot * qvel[..., None])
+  # each body's dof terms summed by a product with the map of dofs to
+  # bodies, in one fixed order, so a step repeats bit for bit: on the card
+  # an index_add_ over more than 16 indices adds by atomics, in any order,
+  # and three or more terms of one body (a free joint's six) then differ
+  dotsum = torch.matmul(spec.body_own_dofs, cdof_dot * qvel[..., None])
 
   cacc = cdof.new_zeros((B, m.nbody, 6))
   cacc[:, 0, 3:] = -gravity

@@ -361,12 +361,14 @@ def fwd_constraint(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
 def _solve(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,
            full_data: bool) -> Data:
   """The Newton solve on the rows ``efc``, then its forces scattered into
-  Data."""
+  Data. The solve feeds the Newton and row-use counters
+  (``utils/spans.py``)."""
   J, aref, D, is_eq, _pos, meta = efc
   qacc, force, iterations = _newton_solve(m, d, J, aref, D, is_eq,
                                           int(m.opt.solver_iterations),
                                           int(m.opt.ls_iterations))
   spans.newton_solved(iterations)
+  spans.efc_rows_used(force)
   out = d.replace(qfrc_constraint=_mv(J.transpose(-1, -2), force), qacc=qacc,
                   qacc_warmstart=qacc)
   if not full_data:

@@ -384,14 +384,17 @@ class MyoEnv:
     rwd_sparse, solved, terminated and truncated; its physics, obs and
     steps are the fresh episode's; an env that resets takes the fresh
     episode's model overlay and condition state, the others keep theirs.
-    The reset and the merge run in their spans (``utils/spans.py``)."""
+    The reset and the merge run in their spans, and the envs that keep
+    their reset feed the reset counter (``utils/spans.py``)."""
     nxt = self.step(state, action, generator)
     with spans.span(spans.ENV_RESET):
       fresh = self.reset(nxt.obs.shape[0], nxt.obs.device, generator)
     with spans.span(spans.ENV_SELECT):
       terminated = nxt.done
       truncated = self.truncated(nxt) & ~terminated
-      out = _select(terminated | truncated, fresh, nxt)
+      kept = terminated | truncated
+      spans.resets_kept(kept)
+      out = _select(kept, fresh, nxt)
       return out.replace(
           done=terminated, reward=nxt.reward,
           info={**out.info, "rwd_dense": nxt.info["rwd_dense"],

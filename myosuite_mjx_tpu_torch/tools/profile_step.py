@@ -14,7 +14,9 @@ window of ``--steps`` control steps and prints:
   included) and device ms (the kernels launched inside it). A stage's row
   counts every call, those of the reset's forward pass too, which also
   sit inside ``env.reset``'s row;
-- the Newton solves' useful share (``spans.newton_work``);
+- the Newton solves' useful share (``spans.newton_work``), the share of
+  their constraint rows holding force (``spans.efc_row_use``) and the
+  share of the fresh resets kept (``spans.reset_use``);
 - the kernels with the most device time.
 
 The device's idle share, and the idle time by span, are the benchmark's
@@ -82,6 +84,14 @@ def main(argv=None) -> None:
   if run:
     print(f"Newton useful share {100.0 * useful / run:.1f}% ({useful} of "
           f"{run} env-iterations)")
+  used, carried = spans.efc_row_use()
+  if carried:
+    print(f"constraint rows in force {100.0 * used / carried:.1f}% ({used} "
+          f"of {carried} env-rows)")
+  kept, computed = spans.reset_use()
+  if computed:
+    print(f"resets kept {100.0 * kept / computed:.2f}% ({kept} of "
+          f"{computed} computed)")
   table = p.key_averages().table(sort_by="self_cuda_time_total",
                                  row_limit=40)
   print("\n".join(table.splitlines()[:25]))

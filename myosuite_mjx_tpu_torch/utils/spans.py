@@ -29,7 +29,11 @@ with the trace's readers (``benchmark/metrics/idle_share.*.py``,
 The Newton counter keeps each solve's per-env iteration counts [B] (no sync,
 no launch) and reduces them only when ``newton_work`` reads them. Beside
 it, ``newton_graph_blocks`` counts the Newton blocks run from a CUDA graph
-and all Newton blocks (``engine/solver.py``).
+and all Newton blocks (``engine/solver.py``). Two more counters follow the
+same rule: ``efc_rows_used`` keeps each solve's per-env count of rows
+holding a nonzero force [B] (one launch a solve), read by ``efc_row_use``;
+``resets_kept`` keeps each ``autoreset_step``'s mask of the envs that took
+their fresh reset [B] (no launch), read by ``reset_use``.
 """
 from __future__ import annotations
 
@@ -73,6 +77,11 @@ def span(name: str):
 _kept: list = []
 # Newton blocks since the latest recording began: [from a graph, all]
 _blocks = [0, 0]
+# (rows in force per env [B], rows a solve carries) of each solve, and
+# the mask of kept resets [B] of each autoreset step, since the latest
+# recording began
+_rows: list = []
+_resets: list = []
 _stale = True     # no profiler recorded at the last solve
 
 
@@ -86,6 +95,8 @@ def _keeping() -> bool:
   if _stale:
     _kept.clear()
     _blocks[:] = [0, 0]
+    _rows.clear()
+    _resets.clear()
     _stale = False
   return True
 
@@ -122,3 +133,34 @@ def newton_work() -> tuple[int, int]:
   useful = sum(int(it.sum()) for it in _kept)
   run = sum(it.numel() * int(it.max()) for it in _kept)
   return useful, run
+
+
+def efc_rows_used(force: torch.Tensor) -> None:
+  """Keep one solve's count of rows holding a nonzero force per env, from
+  its forces [B, R], while a profiler records (one reduction launch)."""
+  if _keeping():
+    _rows.append((torch.linalg.vector_norm(force, ord=0, dim=-1),
+                  force.shape[-1]))
+
+
+def efc_row_use() -> tuple[int, int]:
+  """(rows holding a nonzero force, summed over envs and solves, B x the
+  rows each solve carries, summed over solves) over the solves of the
+  latest recording."""
+  used = sum(int(n.sum(dtype=torch.float64)) for n, _ in _rows)
+  carried = sum(n.numel() * rows for n, rows in _rows)
+  return used, carried
+
+
+def resets_kept(kept: torch.Tensor) -> None:
+  """Keep one autoreset step's mask [B] of the envs whose fresh reset
+  the step took, while a profiler records."""
+  if _keeping():
+    _resets.append(kept)
+
+
+def reset_use() -> tuple[int, int]:
+  """(fresh resets kept, fresh resets computed) over the autoreset steps of
+  the latest recording: every step computes one for each env."""
+  return (sum(int(k.sum()) for k in _resets),
+          sum(k.numel() for k in _resets))

@@ -17,10 +17,11 @@ misaligned views (the plain loads); the clamp cases (pivots that reach 0 or
 go below tiny); and the entry points that run through it: a float64
 ``MyoEnv`` and ``Physics`` on chain72 (nv 72), each against the CPU.
 The Newton solve replayed from its CUDA graphs against the same solves
-run eagerly, bit for bit, in float32 and float64. Last, the rest of the
-port on the card against the CPU: the reflex
-controller's update, the gym adapter, the CNN encoder, and the
-data-parallel learners at world size 1 on NCCL against the plain step.
+run eagerly, bit for bit, in float32 and float64, on hand23 pose and on
+legs80 walk on MyoLeg's knees (equality and contact rows in force). Last,
+the rest of the port on the card against the CPU: the reflex controller's
+update, the gym adapter, the CNN encoder, and the data-parallel learners
+at world size 1 on NCCL against the plain step.
 """
 from __future__ import annotations
 
@@ -317,20 +318,43 @@ def test_chain72_physics_runs_through_the_general_kernel(dtype):
                              res["cpu"].qpos.numpy(), rtol=0, atol=bound)
 
 
+def _hand23_pose(dtype):
+  return PoseEnv(os.path.join(ASSETS, "hand23.npz"), dtype=dtype,
+                 **HAND_POSE_FIXED)
+
+
+def _legs80_walk(dtype):
+  from myosuite_mjx_tpu_torch import envs
+  return envs.make("legs80Walk-v0", dtype=dtype,
+                   model_path=os.path.join(ASSETS, "legs80_knee.npz"))
+
+
+# scene: (env, its rows and nv, the equality rows)
+GRAPH_SCENES = {"hand23": (_hand23_pose, (119, 23), 0),
+                "legs80": (_legs80_walk, (138, 34), 14)}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("scene", sorted(GRAPH_SCENES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["float32", "float64"])
-def test_newton_graph_replay_matches_eager_on_card(dtype, monkeypatch):
-  """The Newton solves of two control steps of hand23 pose at B 4096
-  ([4096, 119, 23]) on the card, each run eagerly and through the graph
+def test_newton_graph_replay_matches_eager_on_card(dtype, scene,
+                                                   monkeypatch):
+  """The Newton solves of two control steps at B 4096 on the card, of
+  hand23 pose ([4096, 119, 23]) and of legs80 walk on MyoLeg's knees
+  (``legs80_knee``, [4096, 138, 34]: the knees' 14 equality rows, the
+  feet's contacts on the floor, and each
+  step's reset solving its own), each run eagerly and through the graph
   path from an empty cache (the warm-up on the side stream, the capture,
   then replays): qacc, force and per-env iterations bit for bit, the same
   host syncs, the same SPD launches counted (float32 in the register
   kernel's counter, float64 in the general kernel's), and returned
-  tensors that are not the graph's static buffers."""
+  tensors that are not the graph's static buffers. On legs80 the
+  equality and contact rows hold force."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card")
   from myosuite_mjx_tpu_torch.engine import solver
+  make_env, shape, n_eq = GRAPH_SCENES[scene]
   batch = 4096
   solves = []
   inner = solver._newton_solve
@@ -339,8 +363,7 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, monkeypatch):
     solves.append(args)
     return inner(*args)
 
-  benv = BatchedEnv(PoseEnv(os.path.join(ASSETS, "hand23.npz"), dtype=dtype,
-                            **HAND_POSE_FIXED), batch, "cuda")
+  benv = BatchedEnv(make_env(dtype), batch, "cuda")
   g = torch.Generator(device="cuda").manual_seed(0)
   st = benv.init()
   with monkeypatch.context() as mp:
@@ -349,7 +372,7 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, monkeypatch):
       a = torch.rand((batch, benv.env.action_dim), generator=g,
                      device="cuda", dtype=dtype) * 2 - 1
       st = benv.step(st, a)
-  assert len(solves) >= 3 and solves[0][2].shape == (batch, 119, 23)
+  assert len(solves) >= 3 and solves[0][2].shape == (batch,) + shape
 
   def run(args, graph: bool):
     before = [c.launches for c in solver._COUNTERS]
@@ -364,6 +387,7 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, monkeypatch):
 
   solver._staged.clear()
   worst = 0.0
+  rows = torch.zeros(shape[0], dtype=torch.int64, device="cuda")
   for args in solves:
     eager, eager_launches, eager_syncs = run(args, graph=False)
     out, launches, syncs = run(args, graph=True)
@@ -372,12 +396,19 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, monkeypatch):
       assert torch.equal(a, b), what
     assert launches == eager_launches and sum(launches) > 0
     assert syncs == eager_syncs
+    rows += (eager[1] != 0).sum(0)
+  if n_eq:
+    # envs holding force on each equality row, and on the contact slots
+    # (24 of 4 rows each, last)
+    assert (rows[:n_eq] > 0).all() and rows[-96:].sum() > 0, rows
+    print(f"{scene}: envs x solves with force on each equality row "
+          f"{rows[:n_eq].tolist()}, on contact rows {int(rows[-96:].sum())}")
   (staged,) = solver._staged.values()
   assert staged.graphs is not None
   for t in out:
     assert t.data_ptr() not in {s.data_ptr() for s in staged.carry}
-  print(f"newton graph replay vs eager, {dtype}, {len(solves)} solves: "
-        f"largest difference {worst}")
+  print(f"newton graph replay vs eager, {scene}, {dtype}, {len(solves)} "
+        f"solves: largest difference {worst}")
 
 
 @pytest.mark.gpu

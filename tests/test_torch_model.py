@@ -199,19 +199,28 @@ def test_hand23_has_myohand_width():
 @pytest.mark.parametrize("name", sorted(LEGS))
 def test_legs_fixture_has_myoleg_names_and_width(name):
   m = tmodel.load_npz(FIXTURE_NPZ[name])
-  assert (m.nq, m.nv) == (23, 22)
+  knee = name.endswith("_knee")
+  # one coupled slide a knee, or MyoLeg's seven coupled joints
+  n_eq = 14 if knee else 2
+  assert (m.nq, m.nv) == (23 + n_eq - 2, 22 + n_eq - 2)
   assert m.nu == m.na == (80 if name.startswith("legs80") else 16)
   for side in "lr":
     for j in ("hip_flexion", "hip_adduction", "hip_rotation", "knee_angle",
-              "knee_angle_translation", "ankle_angle", "subtalar_angle",
-              "mtp_angle"):
+              "ankle_angle", "subtalar_angle", "mtp_angle"):
       m.name2id("joint", f"{j}_{side}")
-    for b in ("femur", "tibia", "talus", "calcn", "toes"):
+    coupled = ([f"knee_angle_{side}_{j}" for j in (
+        "translation1", "translation2", "rotation2", "rotation3",
+        "beta_translation1", "beta_translation2", "beta_rotation1")]
+               if knee else [f"knee_angle_translation_{side}"])
+    for j in coupled:
+      m.name2id("joint", j)
+    for b in ("femur", "tibia", "talus", "calcn", "toes") + (
+        ("patella",) if knee else ()):
       m.name2id("body", f"{b}_{side}")
   for b in ("pelvis", "torso"):
     m.name2id("body", b)
-  # two knee couplings, four touch sensors, a 100 x 100 field, four keys
-  assert m.neq == 2 and list(m.eq_type) == [tmodel.EqType.JOINT] * 2
+  # the knee couplings, four touch sensors, a 100 x 100 field, four keys
+  assert m.neq == n_eq and list(m.eq_type) == [tmodel.EqType.JOINT] * n_eq
   assert sorted(m.names["sensor"]) == ["l_foot", "l_toes", "r_foot",
                                        "r_toes"]
   assert (m.nhfield, int(m.hfield_nrow[0]), int(m.hfield_ncol[0])) == (

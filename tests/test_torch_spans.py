@@ -1,13 +1,18 @@
-"""The port's spans and its Newton useful-work counter (``utils/spans.py``),
-and the benchmark's readers of them, on the CPU: hand23 pose, B = 4.
+"""The port's spans and its counters (``utils/spans.py``), and the
+benchmark's readers of them, on the CPU: hand23 pose and legs16 walk,
+B = 4.
 
-Without a profiler a span is one shared no-op and the counter keeps
+Without a profiler a span is one shared no-op and the counters keep
 nothing. Under ``torch.profiler`` the outermost host ranges of one
 ``autoreset_step`` are the documented top-level spans in order, the
 narrowphase group spans sit inside ``engine.contacts``, the outputs are
-bit-identical to an unprofiled step, the counter holds what the Newton
-solves returned, and the block counter counts every block, none from a
-CUDA graph (the CPU runs the eager loop).
+bit-identical to an unprofiled step, the Newton counter holds what the
+Newton solves returned, and the block counter counts every block, none
+from a CUDA graph (the CPU runs the eager loop). On the walk, whose reset
+solves its constraints too, the row counter counts each solve's rows
+holding force (the knees' equality rows among them) against the rows it
+carries, and the reset counter the envs that took their fresh reset
+against the batch.
 """
 from __future__ import annotations
 
@@ -228,3 +233,83 @@ def test_idle_readers_sum_to_the_idle_share():
   total = sum(_reader(n).read(ctx) for n in list(IDLE_READERS)
               + ["idle_share.outside_spans"])
   assert total == pytest.approx(_reader("device_idle_share.env").read(ctx))
+
+
+WALK = "legs16Walk-v0"
+
+
+@pytest.fixture(scope="module")
+def walk_traced():
+  """One profiled ``autoreset_step`` of legs16 walk from the random reset,
+  two clocks at their last step; what each Newton solve returned."""
+  env = envs.make(WALK)
+  g = torch.Generator().manual_seed(3)
+  st = env.reset(B, "cpu", g)
+  st = st.replace(steps=torch.tensor([0, env.horizon - 1, 0,
+                                      env.horizon - 1], dtype=torch.int32))
+  action = torch.rand((B, env.action_dim), generator=g) * 2 - 1
+  forces = []
+  inner = solver._newton_solve
+
+  def recorded(*args, **kw):
+    out = inner(*args, **kw)
+    forces.append(out[1])
+    return out
+
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(solver, "_newton_solve", recorded)
+    with profile(activities=[ProfilerActivity.CPU]):
+      out = env.autoreset_step(st, action)
+  return {"env": env, "state": st, "action": action, "out": out,
+          "forces": forces, "rows": spans.efc_row_use(),
+          "resets": spans.reset_use()}
+
+
+def test_row_counter_counts_each_solves_rows_in_force(walk_traced):
+  forces, env = walk_traced["forces"], walk_traced["env"]
+  # frame_skip substeps and the reset, each one solve
+  assert len(forces) == env.frame_skip + 1
+  R = forces[0].shape[1]
+  n_eq = env.model.neq
+  assert n_eq == 2
+  for f in forces:
+    # the knees' equality rows hold force in every env
+    assert (f[:, :n_eq] != 0).all()
+  used = sum(int((f != 0).sum()) for f in forces)
+  assert walk_traced["rows"] == (used, len(forces) * B * R)
+  assert len(forces) * B * n_eq < used < len(forces) * B * R
+
+
+def test_reset_counter_counts_kept_resets(walk_traced):
+  info = walk_traced["out"].info
+  kept = info["terminated"] | info["truncated"]
+  assert info["truncated"][1::2].all()
+  assert walk_traced["resets"] == (int(kept.sum()), B)
+
+
+def test_row_and_reset_counters_keep_nothing_without_a_profiler(
+    walk_traced):
+  env, st, action = (walk_traced[k] for k in ("env", "state", "action"))
+  assert not spans.recording()
+  before = ([id(t) for t, _ in spans._rows], [id(t) for t in spans._resets])
+  env.autoreset_step(st, action)
+  assert ([id(t) for t, _ in spans._rows],
+          [id(t) for t in spans._resets]) == before
+  assert spans._stale
+
+
+@pytest.mark.parametrize("name,counter,counts,share", [
+    ("efc_row_use", "efc_row_use", (57, 456), 12.5),
+    ("reset_useful_share", "reset_use", (3, 8192), 100.0 * 3 / 8192)])
+def test_row_and_reset_readers_read_their_counter(name, counter, counts,
+                                                  share, monkeypatch):
+  read = _reader(name).read
+  ctx = {"trace": {"idle_by_host_op": {}}}
+  monkeypatch.setattr(spans, counter, lambda: counts)
+  assert read(ctx) == pytest.approx(share)
+  assert read({}) is None
+  monkeypatch.setattr(spans, counter, lambda: (0, 0))
+  assert read(ctx) is None
+  # a program without the counter (the parent of these counters)
+  monkeypatch.delattr(spans, counter)
+  assert read(ctx) is None

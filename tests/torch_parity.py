@@ -56,11 +56,14 @@ OBJECT_NPZ = {(obj, digits): os.path.join(
     ASSETS, f"hand{11 if digits == 2 else 23}_{obj}.npz")
               for obj in OBJECTS for digits in (2, 5)}
 # the two-leg scenes by name: legs80 / legs16, plain and with the
-# chase-tag opponent, and legs80 with MyoLeg's muscle names (the reflex
-# walker's scene)
+# chase-tag opponent, legs80 with MyoLeg's muscle names (the reflex
+# walker's scene), and both widths with MyoLeg's seven-joint knees (the
+# benchmark's legs80 configuration)
 LEGS = {"legs80": (40, False), "legs80_chasetag": (40, True),
         "legs16": (8, False), "legs16_chasetag": (8, True),
-        "legs80_reflex": (40, False, True)}
+        "legs80_reflex": (40, False, True),
+        "legs80_knee": (40, False, False, True),
+        "legs16_knee": (8, False, False, True)}
 LEGS_NPZ = {name: os.path.join(ASSETS, f"{name}.npz") for name in LEGS}
 # the sensor tests' plate scene
 PLATE_NPZ = os.path.join(ASSETS, "plate.npz")

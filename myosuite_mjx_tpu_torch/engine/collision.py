@@ -27,6 +27,7 @@ import torch
 from myosuite_mjx_tpu_torch.engine import smooth
 from myosuite_mjx_tpu_torch.engine.data import Contact, Data
 from myosuite_mjx_tpu_torch.engine.model import DeviceModel, GeomType, Model
+from myosuite_mjx_tpu_torch.ops.consts import const
 from myosuite_mjx_tpu_torch.utils import spans
 
 _MINVAL = 1e-15
@@ -353,8 +354,8 @@ def _where3(c, a, b):
 
 def make_frame(n: torch.Tensor) -> torch.Tensor:
   """[..., 3, 3] rows (n, t1, t2), MuJoCo's frame construction."""
-  y = n.new_tensor([0.0, 1.0, 0.0])
-  z = n.new_tensor([0.0, 0.0, 1.0])
+  y = const((0.0, 1.0, 0.0), n)
+  z = const((0.0, 0.0, 1.0), n)
   seed = torch.where((n[..., 1].abs() < 0.5)[..., None], y, z)
   t1 = _cross(seed, n)
   t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1, keepdim=True),
@@ -403,14 +404,14 @@ def _plane_ellipsoid(ppos, pmat, gpos, gmat, radii):
 
 
 # the corner signs of _plane_box, in the reference's loop order (x, y, z)
-_BOX_CORNERS = np.array([[sx, sy, sz] for sx in (-1.0, 1.0)
-                         for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)])
+_BOX_CORNERS = tuple((sx, sy, sz) for sx in (-1.0, 1.0)
+                     for sy in (-1.0, 1.0) for sz in (-1.0, 1.0))
 
 
 def _plane_box(ppos, pmat, gpos, gmat, size):
   """All 8 corners (the solver keeps the active ones)."""
   n = pmat[..., None, :, 2]                                  # [..., 1, 3]
-  local = size[..., None, :] * size.new_tensor(_BOX_CORNERS)  # [..., 8, 3]
+  local = size[..., None, :] * const(_BOX_CORNERS, size)  # [..., 8, 3]
   corner = gpos[..., None, :] + _mv(gmat[..., None, :, :], local)
   dist = _dot(corner - ppos[..., None, :], n)
   pos = corner - 0.5 * dist[..., None] * n
@@ -428,7 +429,7 @@ def _plane_cylinder(ppos, pmat, gpos, gmat, r, half):
   rim = _where3(prn > 1e-9, pr / torch.clamp(prn, min=_MINVAL)[..., None],
                 gmat[..., :, 0])
   perp = _cross(axis, rim)
-  send = n.new_tensor([-1.0, 1.0])[:, None]                   # [2, 1]
+  send = const((-1.0, 1.0), n)[:, None]                       # [2, 1]
   center = (gpos[..., None, :]
             + send * half[..., None, None] * axis[..., None, :])
   p = torch.cat([center + (rim * r[..., None])[..., None, :],
@@ -793,7 +794,7 @@ def _mpr_penetration(sup_m, v0):
   from geom1 into geom2, pos the mid-penetration point.
   """
   eps = 1e-12
-  tiny = v0.new_tensor([1e-8, 0.0, 0.0])
+  tiny = const((1e-8, 0.0, 0.0), v0)
   # degenerate center overlap: nudge
   v0 = _where3(_norm(v0) < 1e-10, v0 + tiny, v0)
 
@@ -802,8 +803,8 @@ def _mpr_penetration(sup_m, v0):
   d2 = _cross(v1, v0)
   # origin on the v0-v1 line: perturb the direction deterministically
   d2 = _where3(_norm(d2) < 1e-12,
-               _cross(v1 + v0.new_tensor([3e-8, 1e-8, 2e-8]), v0), d2)
-  d2 = _where3(_norm(d2) < 1e-12, v0.new_tensor([0.0, 0.0, 1.0]), d2)
+               _cross(v1 + const((3e-8, 1e-8, 2e-8), v0), v0), d2)
+  d2 = _where3(_norm(d2) < 1e-12, const((0.0, 0.0, 1.0), v0), d2)
   v2, a21, a22 = sup_m(_unit(d2))
   sep2 = _dot(v2, _unit(d2)) < 0
 
@@ -1343,7 +1344,7 @@ def contacts(m: DeviceModel, d: Data, max_contacts: int | None = None):
     else:
       jf = rows3[..., 1:3, :]                                 # [B, k, fd, nv]
     mu = fric[..., :fd]
-    signs = d.qpos.new_tensor([1.0, -1.0])
+    signs = const((1.0, -1.0), d.qpos)
     rows_per = 2 * fd
     J = (jn[..., None, None, :] + signs[:, None] * mu[..., None, None]
          * jf[..., None, :]).reshape(B, k, rows_per, m.nv)

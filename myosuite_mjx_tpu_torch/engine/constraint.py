@@ -18,6 +18,7 @@ from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import (
     DSBL_CONSTRAINT, DSBL_CONTACT, DSBL_EQUALITY, DSBL_LIMIT, DeviceModel,
     EqType)
+from myosuite_mjx_tpu_torch.ops.consts import const
 
 _MINVAL = 1e-15
 _MINIMP = 0.0001
@@ -197,7 +198,7 @@ def equality_rows(m: DeviceModel, d: Data, spec: _EqSpec):
     poss.append(d.qpos[:, b.obj1] - b.ref1 - poly)
     rows = torch.arange(b.obj1.numel(), device=d.qpos.device)
     J = d.qpos.new_zeros((B, rows.numel(), m.nv))
-    J[:, rows, b.dof1] = 1.0
+    J[:, rows, b.dof1] = const(1.0, J)
     J = J.index_put((torch.arange(B, device=J.device)[:, None], rows,
                      b.dof2), -dpoly, accumulate=True)
     Js.append(J)

@@ -441,13 +441,16 @@ def com_vel(m: DeviceModel, cdof: torch.Tensor, qvel: torch.Tensor):
   return cvel, cdof_dot
 
 
+def _gravity(m: DeviceModel) -> torch.Tensor:
+  g = m.tensor(m.opt.gravity)
+  return torch.zeros_like(g) if m.opt.disableflags & DSBL_GRAVITY else g
+
+
 def rne(m: DeviceModel, cinert, cdof, cdof_dot, cvel, qvel) -> torch.Tensor:
   """Bias force C(q, qvel) [B, nv] by recursive Newton-Euler (qacc = 0)."""
   B = qvel.shape[0]
   spec = tree_spec(m)
-  gravity = m.tensor(m.opt.gravity)
-  if m.opt.disableflags & DSBL_GRAVITY:
-    gravity = torch.zeros_like(gravity)
+  gravity = m.spec("gravity", _gravity)
   # each body's dof terms summed by a product with the map of dofs to
   # bodies, in one fixed order, so a step repeats bit for bit: on the card
   # an index_add_ over more than 16 indices adds by atomics, in any order,

@@ -255,14 +255,15 @@ _COUNTERS = (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda)
 
 
 class _Graph:
-  """A CUDA graph of ``fn``, captured on ``stream``; calling it replays the
-  graph and adds the SPD launches it holds to their counters (the capture,
-  which launches nothing, takes its count back)."""
+  """A CUDA graph of ``fn``, captured on ``stream`` into ``pool`` (another
+  graph's ``pool()``, or a private one); calling it replays the graph and
+  adds the SPD launches it holds to their counters (the capture, which
+  launches nothing, takes its count back)."""
 
-  def __init__(self, fn, stream):
+  def __init__(self, fn, stream, pool=None):
     before = [c.launches for c in _COUNTERS]
     self.graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(self.graph, stream=stream,
+    with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                           capture_error_mode="thread_local"):
       fn()
     self.launches = [c.launches - b for c, b in zip(_COUNTERS, before)]
@@ -352,6 +353,13 @@ def fwd_constraint(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
     contact_blocks, contact_info = collision.contacts(m, d)
   with spans.span(spans.MAKE_EFC):
     efc = constraint.make_efc(m, d, contact_blocks)
+  return solve_rows(m, d, efc, contact_blocks, contact_info, full_data)
+
+
+def solve_rows(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,
+               full_data: bool = True) -> Data:
+  """The constraint forces on the rows ``efc`` (``make_efc``'s; None: the
+  smooth acceleration), in the Newton span."""
   with spans.span(spans.NEWTON):
     if efc is None:
       return smooth_only(m, d)

@@ -17,6 +17,7 @@ import torch
 
 from myosuite_mjx_tpu_torch.engine import smooth
 from myosuite_mjx_tpu_torch.engine.model import DeviceModel, GeomType, WrapType
+from myosuite_mjx_tpu_torch.ops.consts import const
 
 _EPS = 1e-12
 
@@ -163,8 +164,8 @@ def wrap_geom(x0, x1, gpos, gmat, radius, geom_type: int, side,
     e0 = p0 / torch.clamp(_norm(p0)[..., None], min=_EPS)
     p1_perp = p1 - _dot(p1, e0)[..., None] * e0
     nrm = _norm(p1_perp)
-    ex = p0.new_tensor([1.0, 0.0, 0.0])
-    ey = p0.new_tensor([0.0, 1.0, 0.0])
+    ex = const((1.0, 0.0, 0.0), p0)
+    ey = const((0.0, 1.0, 0.0), p0)
     alt = torch.where((e0[..., 0].abs() < 0.9)[..., None], ex, ey)
     alt_perp = alt - _dot(alt, e0)[..., None] * e0
     e1 = torch.where(

@@ -15,7 +15,10 @@ or substep, so the outermost range over any moment is a stage:
   wraps, transmission), ``engine.fwd_velocity``, ``engine.fwd_actuation``,
   ``engine.fwd_passive``, ``engine.fwd_acceleration``, ``engine.contacts``,
   ``engine.make_efc``, ``engine.newton`` (the solve and the force scatter)
-  and ``engine.euler``,
+  and ``engine.euler``; on the card's graph path (``forward.forward``) the
+  replay of the smooth stages sits in ``engine.fwd_position`` and that of
+  contacts and rows in ``engine.contacts``, and the four spans between
+  them and ``engine.make_efc`` are not opened,
 - ``env.task`` (obs, reward and done of the stepped state),
 - ``env.reset`` (``autoreset_step``'s fresh reset: its forward stages nest
   inside it),
@@ -29,7 +32,9 @@ with the trace's readers (``benchmark/metrics/idle_share.*.py``,
 The Newton counter keeps each solve's per-env iteration counts [B] (no sync,
 no launch) and reduces them only when ``newton_work`` reads them. Beside
 it, ``newton_graph_blocks`` counts the Newton blocks run from a CUDA graph
-and all Newton blocks (``engine/solver.py``). Two more counters follow the
+and all Newton blocks (``engine/solver.py``), and ``forward_graph_passes``
+the forward passes on the card served by CUDA graph replays and all forward
+passes on the card (``engine/forward.py``). Two more counters follow the
 same rule: ``efc_rows_used`` keeps each solve's per-env count of rows
 holding a nonzero force [B] (one launch a solve), read by ``efc_row_use``;
 ``resets_kept`` keeps each ``autoreset_step``'s mask of the envs that took
@@ -77,6 +82,9 @@ def span(name: str):
 _kept: list = []
 # Newton blocks since the latest recording began: [from a graph, all]
 _blocks = [0, 0]
+# forward passes on the card since the latest recording began: [served by
+# graph replays, all]
+_forwards = [0, 0]
 # (rows in force per env [B], rows a solve carries) of each solve, and
 # the mask of kept resets [B] of each autoreset step, since the latest
 # recording began
@@ -95,6 +103,7 @@ def _keeping() -> bool:
   if _stale:
     _kept.clear()
     _blocks[:] = [0, 0]
+    _forwards[:] = [0, 0]
     _rows.clear()
     _resets.clear()
     _stale = False
@@ -119,6 +128,20 @@ def newton_graph_blocks() -> tuple[int, int]:
   """(Newton blocks run from a CUDA graph, all Newton blocks) over the
   solves of the latest recording."""
   return _blocks[0], _blocks[1]
+
+
+def forward_pass(graphed: bool) -> None:
+  """Count one forward pass on the card, served by graph replays or not,
+  while a profiler records."""
+  if _keeping():
+    _forwards[0] += bool(graphed)
+    _forwards[1] += 1
+
+
+def forward_graph_passes() -> tuple[int, int]:
+  """(forward passes on the card served by CUDA graph replays, all forward
+  passes on the card) over the latest recording."""
+  return _forwards[0], _forwards[1]
 
 
 def newton_work() -> tuple[int, int]:

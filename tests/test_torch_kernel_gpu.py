@@ -18,13 +18,16 @@ go below tiny); and the entry points that run through it: a float64
 ``MyoEnv`` and ``Physics`` on chain72 (nv 72), each against the CPU.
 The Newton solve replayed from its CUDA graphs against the same solves
 run eagerly, bit for bit, in float32 and float64, on hand23 pose and on
-legs80 walk on MyoLeg's knees (equality and contact rows in force). Last,
+legs80 walk on MyoLeg's knees (equality and contact rows in force); so
+are three autoreset steps of each through the forward's and Newton's
+graphs. Last,
 the rest of the port on the card against the CPU: the reflex controller's
 update, the gym adapter, the CNN encoder, and the data-parallel learners
 at world size 1 on NCCL against the plain step.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -409,6 +412,98 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, scene,
     assert t.data_ptr() not in {s.data_ptr() for s in staged.carry}
   print(f"newton graph replay vs eager, {scene}, {dtype}, {len(solves)} "
         f"solves: largest difference {worst}")
+
+
+def _state_leaves(x, path=""):
+  """(path, tensor) of every tensor in a state, dataclasses and dicts
+  walked."""
+  if isinstance(x, torch.Tensor):
+    yield path, x
+  elif isinstance(x, dict):
+    for k in sorted(x):
+      yield from _state_leaves(x[k], f"{path}.{k}")
+  elif dataclasses.is_dataclass(x):
+    for f in dataclasses.fields(x):
+      yield from _state_leaves(getattr(x, f.name), f"{path}.{f.name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", sorted(GRAPH_SCENES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
+                                                    monkeypatch):
+  """Three ``autoreset_step``s at B 4096 on the card, of hand23 pose and
+  of legs80 walk on MyoLeg's knees, from one state, actions and seed,
+  once through the graph paths from empty caches (the forward's two graphs
+  and Newton's: warm-up, capture, replays) and once eagerly: every state's
+  every tensor (each Data field, the contact set and overlay, obs, reward,
+  done, info, aux) bit for bit, the envs that reset and those that did not
+  (a quarter of the clocks at the horizon), and the same SPD launches
+  counted. No returned tensor shares memory with a graph's buffers."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  from myosuite_mjx_tpu_torch.engine import forward, solver
+  make_env, _, _ = GRAPH_SCENES[scene]
+  batch = 4096
+  env = make_env(dtype)
+  g = torch.Generator(device="cuda").manual_seed(0)
+  actions = [torch.rand((batch, env.action_dim), generator=g, device="cuda",
+                        dtype=dtype) * 2 - 1 for _ in range(3)]
+
+  def run(graph: bool):
+    forward._staged.clear()
+    solver._staged.clear()
+    before = [c.launches for c in solver._COUNTERS]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    states = []
+    with monkeypatch.context() as mp:
+      if not graph:
+        mp.setattr(solver, "_graphable", lambda inputs: False)
+      st = env.reset(batch, "cuda", gen)
+      steps = torch.arange(batch, device="cuda", dtype=torch.int32) % 4
+      st = st.replace(steps=env.horizon - 1 - steps)
+      for a in actions:
+        st = env.autoreset_step(st, a, gen)
+        states.append(st)
+    torch.cuda.synchronize()
+    return states, [c.launches - b for c, b in zip(solver._COUNTERS, before)]
+
+  eager, eager_launches = run(graph=False)
+  assert not forward._staged
+  graphed, launches = run(graph=True)
+  assert launches == eager_launches and sum(launches) > 0
+  worst = 0.0
+  for i, (a, b) in enumerate(zip(graphed, eager)):
+    la, lb = dict(_state_leaves(a)), dict(_state_leaves(b))
+    assert la.keys() == lb.keys()
+    for k in lb:
+      if la[k].is_floating_point():
+        worst = max(worst, float((la[k].double() - lb[k].double()).abs()
+                                 .max()) if la[k].numel() else 0.0)
+      assert torch.equal(la[k], lb[k]), (i, k)
+    kept = b.info["terminated"] | b.info["truncated"]
+    assert kept.any() and not kept.all(), i
+  # the steps' model (the first reset's, asked for "cuda" and not "cuda:0",
+  # is another, whose one pass only warmed up)
+  stepped = env.device_model(graphed[-1].data.qpos.device)
+  staged = [st for st in forward._staged.values() if st.m is stepped]
+  assert staged and all(st.graphs[0] is not None for st in staged)
+  assert any(st.graphs[1] is not None for st in staged)
+  buffers = set()
+  for st in forward._staged.values():
+    for _, t in _state_leaves({"in": st.inputs, "ov": st.overlay,
+                               "after": st.after}):
+      buffers.add(t.untyped_storage().data_ptr())
+    blocks, info, efc = st.rows or (None, None, None)
+    for _, t in _state_leaves({"blocks": blocks or {}, "info": info}):
+      buffers.add(t.untyped_storage().data_ptr())
+  for a in graphed:
+    for k, t in _state_leaves(a):
+      if t.numel():
+        assert t.untyped_storage().data_ptr() not in buffers, k
+  print(f"forward graph replay vs eager, {scene}, {dtype}, 3 autoreset "
+        f"steps: largest difference {worst}, SPD launches {launches}")
 
 
 @pytest.mark.gpu

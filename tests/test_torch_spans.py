@@ -8,7 +8,9 @@ nothing. Under ``torch.profiler`` the outermost host ranges of one
 narrowphase group spans sit inside ``engine.contacts``, the outputs are
 bit-identical to an unprofiled step, the Newton counter holds what the
 Newton solves returned, and the block counter counts every block, none
-from a CUDA graph (the CPU runs the eager loop). On the walk, whose reset
+from a CUDA graph (the CPU runs the eager loop); the forward counter counts
+only passes on the card, so none here, and keeps nothing without a
+profiler. On the walk, whose reset
 solves its constraints too, the row counter counts each solve's rows
 holding force (the knees' equality rows among them) against the rows it
 carries, and the reset counter the envs that took their fresh reset
@@ -111,6 +113,7 @@ def traced(env_and_state):
   events = list(prof.profiler.kineto_results.events())
   return {"plain": plain, "out": out, "events": events, "solves": solves,
           "work": spans.newton_work(), "blocks": spans.newton_graph_blocks(),
+          "forwards": spans.forward_graph_passes(),
           "frame_skip": env.frame_skip}
 
 
@@ -192,6 +195,31 @@ def test_newton_graph_reader_reads_the_counter(monkeypatch):
   assert read(ctx) is None
   # a program without the counter (the parent of the graph path)
   monkeypatch.delattr(spans, "newton_graph_blocks")
+  assert read(ctx) is None
+
+
+def test_forward_passes_counted_on_the_card_only(traced):
+  assert traced["forwards"] == (0, 0)
+  with profile(activities=[ProfilerActivity.CPU]):
+    for graphed in (True, False, True):
+      spans.forward_pass(graphed)
+    assert spans.forward_graph_passes() == (2, 3)
+  assert spans.forward_graph_passes() == (2, 3)
+  # nothing kept without a profiler
+  spans.forward_pass(True)
+  assert spans.forward_graph_passes() == (2, 3) and spans._stale
+
+
+def test_forward_graph_reader_reads_the_counter(monkeypatch):
+  read = _reader("forward_graph_share").read
+  ctx = {"trace": {"idle_by_host_op": {}}}
+  monkeypatch.setattr(spans, "forward_graph_passes", lambda: (21, 24))
+  assert read(ctx) == pytest.approx(87.5)
+  assert read({}) is None
+  monkeypatch.setattr(spans, "forward_graph_passes", lambda: (0, 0))
+  assert read(ctx) is None
+  # a program without the counter (the parent of the forward graphs)
+  monkeypatch.delattr(spans, "forward_graph_passes")
   assert read(ctx) is None
 
 

@@ -28,6 +28,8 @@ from myosuite_mjx_tpu_torch.engine import smooth
 from myosuite_mjx_tpu_torch.engine.data import Contact, Data
 from myosuite_mjx_tpu_torch.engine.model import DeviceModel, GeomType, Model
 from myosuite_mjx_tpu_torch.ops.consts import const
+from myosuite_mjx_tpu_torch.ops.vec import (
+    cross as _cross, dot as _dot, norm as _norm)
 from myosuite_mjx_tpu_torch.utils import spans
 
 _MINVAL = 1e-15
@@ -318,19 +320,6 @@ def _hull(m: DeviceModel, dataid: int) -> _Hull:
 # Iterative routines run the reference's fixed trip counts as masked
 # updates over the whole batch: no early exit and no host sync.
 # ---------------------------------------------------------------------------
-
-
-def _dot(a, b):
-  return (a * b).sum(-1)
-
-
-def _cross(a, b):
-  a, b = torch.broadcast_tensors(a, b)
-  return torch.linalg.cross(a, b, dim=-1)
-
-
-def _norm(x):
-  return torch.linalg.vector_norm(x, dim=-1)
 
 
 def _unit(x):

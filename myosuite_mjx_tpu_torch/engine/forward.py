@@ -12,14 +12,16 @@ forces, ``efc_force_limit``, ``ne_active`` and ``ncon_dropped``, which must
 then not be read. The frame-skip loop passes False for every substep but
 the last.
 
-On the card ``forward`` replays two CUDA graphs per key (``_Staged``):
-graph A, ``fwd_position`` through ``fwd_acceleration``, and graph B,
-``collision.contacts`` and ``constraint.make_efc``. The caller's inputs are
-copied into static buffers, and what the graphs write is copied out into
-fresh tensors, so no returned tensor is a graph's. The graphs hold the
-eager stages' kernels, so every field is the same bit for bit. The CPU,
-inputs that require grad and a capture already under way run the stages
-eagerly.
+The stage order is written once: ``_smooth`` runs ``fwd_position``
+through ``fwd_acceleration`` and ``_rows`` contacts and the constraint
+rows, each stage in its span. The eager ``forward`` calls both, then the
+Newton solve. On the card ``forward`` replays them as two CUDA graphs per
+key (``_Staged``, ``engine/graphs.py``): graph A is ``_smooth``, graph B
+``_rows``. The caller's inputs are copied into static buffers, and what
+the graphs write is copied out into fresh tensors, so no returned tensor
+is a graph's. The graphs hold the eager stages' kernels, so every field is
+the same bit for bit. The CPU, inputs that require grad and a capture
+already under way run the stages eagerly.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 
 from myosuite_mjx_tpu_torch.engine import collision, constraint
 from myosuite_mjx_tpu_torch.engine import muscle as muscle_mod
-from myosuite_mjx_tpu_torch.engine import smooth, solver
+from myosuite_mjx_tpu_torch.engine import graphs, smooth, solver
 from myosuite_mjx_tpu_torch.engine import tendon as tendon_mod
 from myosuite_mjx_tpu_torch.engine.data import Contact, Data
 from myosuite_mjx_tpu_torch.engine.model import (
@@ -38,12 +40,8 @@ from myosuite_mjx_tpu_torch.engine.model import (
     DynType, GainType, JointType, TrnType)
 from myosuite_mjx_tpu_torch.ops import linalg
 from myosuite_mjx_tpu_torch.ops import quat as qmath
+from myosuite_mjx_tpu_torch.ops.vec import mv as _mv
 from myosuite_mjx_tpu_torch.utils import spans
-
-
-def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-  """Batched matrix-vector product [B, m, n] x [B, n] -> [B, m]."""
-  return (A @ x[..., None])[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +310,30 @@ def fwd_acceleration(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
                    qacc_smooth=linalg.spd_solve(d.qM, qfrc_smooth))
 
 
+def _smooth(m: DeviceModel, d: Data, full_data: bool) -> Data:
+  """``fwd_position`` through ``fwd_acceleration``, each in its span."""
+  with spans.span(spans.FWD_POSITION):
+    d = fwd_position(m, d, full_data)
+  with spans.span(spans.FWD_VELOCITY):
+    d = fwd_velocity(m, d)
+  with spans.span(spans.FWD_ACTUATION):
+    d = fwd_actuation(m, d)
+  with spans.span(spans.FWD_PASSIVE):
+    d = fwd_passive(m, d)
+  with spans.span(spans.FWD_ACCELERATION):
+    return fwd_acceleration(m, d, full_data)
+
+
+def _rows(m: DeviceModel, d: Data):
+  """Contacts and the constraint rows on them, each in its span:
+  (contact blocks, contact set, rows), as ``solver.solve_rows`` takes
+  them."""
+  with spans.span(spans.CONTACTS):
+    blocks, info = collision.contacts(m, d)
+  with spans.span(spans.MAKE_EFC):
+    return blocks, info, constraint.make_efc(m, d, blocks)
+
+
 def forward(m: DeviceModel, d: Data, constraint: bool = True,
             full_data: bool = True) -> Data:
   """Full forward dynamics at the current state.
@@ -324,26 +346,18 @@ def forward(m: DeviceModel, d: Data, constraint: bool = True,
   feeds the forward graph counter.
   """
   inputs = tuple(getattr(d, k) for k in _INPUTS) + tuple(d.overlay.values())
-  if solver._graphable(inputs):
-    st = _entry(m, d, full_data)
-    d, graphed = st.forward(d, constraint, st.replay)
+  if graphs.graphable(inputs):
+    st = staged.get(_key(m, d, full_data), lambda: _Staged(m, d, full_data))
+    d, graphed = st.forward(d, constraint, st.parts.run)
     spans.forward_pass(graphed)
     return d
   if d.qpos.is_cuda:
     spans.forward_pass(False)
-  with spans.span(spans.FWD_POSITION):
-    d = fwd_position(m, d, full_data)
-  with spans.span(spans.FWD_VELOCITY):
-    d = fwd_velocity(m, d)
-  with spans.span(spans.FWD_ACTUATION):
-    d = fwd_actuation(m, d)
-  with spans.span(spans.FWD_PASSIVE):
-    d = fwd_passive(m, d)
-  with spans.span(spans.FWD_ACCELERATION):
-    d = fwd_acceleration(m, d, full_data)
+  d = _smooth(m, d, full_data)
   if not constraint:
     return solver.smooth_only(m, d)
-  return solver.fwd_constraint(m, d, full_data)
+  blocks, info, efc = _rows(m, d)
+  return solver.solve_rows(m, d, efc, blocks, info, full_data)
 
 
 # what the stages read of the caller's Data besides its overlay; every other
@@ -355,34 +369,18 @@ _FIELDS = tuple(f.name for f in dataclasses.fields(Data)
 _CONTACT = tuple(f.name for f in dataclasses.fields(Contact))
 
 
-def _copy_out(tensors: list) -> list:
-  """Fresh copies of contiguous ``tensors``: one ``cat`` a dtype into a
-  new buffer, each copy a view of it, so none shares memory with the
-  tensors copied."""
-  out = list(tensors)
-  groups: dict = {}
-  for i, t in enumerate(tensors):
-    groups.setdefault(t.dtype, []).append(i)
-  for idx in groups.values():
-    flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-    for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
-      out[i] = part.view(tensors[i].shape)
-  return out
-
-
 class _Staged:
   """Static buffers of one key and the two graphs replayed on them.
 
   ``stage`` copies what the stages read of the caller's Data into
-  ``inputs`` and ``overlay``. ``smooth`` (graph A) runs ``fwd_position``
-  through ``fwd_acceleration`` on them and keeps the result as ``after``;
-  ``constraint_rows`` (graph B) runs contacts and ``make_efc`` on
-  ``after`` and keeps ``rows``. The staged Data's other fields are None,
-  so a stage that read one would fail at its first run rather than bake a
-  caller's tensor into a graph. The two graphs share one memory pool:
-  what A writes is copied out before B runs, and what B writes is read
-  before A runs again. Until a graph is captured, what its warm-up wrote
-  is let go after the pass.
+  ``inputs`` and ``overlay``. ``smooth`` (graph A, part 0) runs ``_smooth``
+  on them and keeps the result as ``after``; ``constraint_rows`` (graph B,
+  part 1) runs ``_rows`` on ``after`` and keeps ``rows``. The staged Data's
+  other fields are None, so a stage that read one would fail at its first
+  run rather than bake a caller's tensor into a graph. The two graphs
+  share one memory pool: what A writes is copied out before B runs, and
+  what B writes is read before A runs again. Until a graph is captured,
+  what its warm-up wrote is let go after the pass.
   """
 
   def __init__(self, m: DeviceModel, d: Data, full_data: bool):
@@ -393,9 +391,7 @@ class _Staged:
         f.name: self.inputs.get(f.name) for f in dataclasses.fields(Data)
         if f.name != "overlay"})
     self.after = self.rows = None
-    self.graphs = [None, None]
-    self.warm = [False, False]
-    self.stream = torch.cuda.Stream(d.qpos.device) if d.qpos.is_cuda else None
+    self.parts = graphs.Parts(d.qpos.device, 2)
 
   def stage(self, d: Data) -> None:
     for k, s in self.inputs.items():
@@ -404,24 +400,20 @@ class _Staged:
       s.copy_(d.overlay[k])
 
   def smooth(self) -> None:
-    m, full = self.m, self.full_data
-    d = fwd_position(m, self.data, full)
-    d = fwd_passive(m, fwd_actuation(m, fwd_velocity(m, d)))
-    self.after = fwd_acceleration(m, d, full)
+    self.after = _smooth(self.m, self.data, self.full_data)
 
   def constraint_rows(self) -> None:
-    blocks, info = collision.contacts(self.m, self.after)
-    efc = constraint.make_efc(self.m, self.after, blocks)
+    blocks, info, efc = _rows(self.m, self.after)
     if self.full_data and info is not None:
-      # the contact set goes into Data: laid out for ``_copy_out``
+      # the contact set goes into Data: laid out for ``graphs.copy_out``
       info = Contact(**{k: getattr(info, k).contiguous() for k in _CONTACT})
     self.rows = (blocks, info, efc)
 
   def forward(self, d: Data, constraint: bool, run) -> tuple[Data, bool]:
     """``forward(m, d, constraint, full_data)`` on the staged buffers:
-    ``run(part, fn)`` runs graph ``part``'s code ``fn`` (``replay``, or a
-    plain call) and says whether it replayed a graph. Returns the Data and
-    whether every part it ran replayed one."""
+    ``run(part, fn)`` runs graph ``part``'s code ``fn`` (``parts.run``, or
+    a plain call) and says whether it replayed a graph. Returns the Data
+    and whether every part it ran replayed one."""
     m = self.m
     with spans.span(spans.FWD_POSITION):
       self.stage(d)
@@ -429,7 +421,7 @@ class _Staged:
       after = self.after
       names = [k for k in _FIELDS if getattr(after, k) is not None
                and getattr(after, k) is not self.inputs.get(k)]
-      d = d.replace(**dict(zip(names, _copy_out(
+      d = d.replace(**dict(zip(names, graphs.copy_out(
           [getattr(after, k) for k in names]))))
     if not constraint:
       self._let_go()
@@ -440,8 +432,8 @@ class _Staged:
       # contact set and the count dropped reach Data
       blocks, info, efc = self.rows
       if self.full_data and info is not None:
-        fresh = _copy_out([getattr(info, k) for k in _CONTACT]
-                          + [blocks["dropped"]])
+        fresh = graphs.copy_out([getattr(info, k) for k in _CONTACT]
+                                + [blocks["dropped"]])
         info = Contact(**dict(zip(_CONTACT, fresh)))
         blocks = {**blocks, "dropped": fresh[-1]}
       self._let_go()
@@ -450,36 +442,10 @@ class _Staged:
   def _let_go(self) -> None:
     """Drop what a graph's warm-up wrote: only a captured graph's own
     buffers are kept."""
-    if self.graphs[0] is None:
+    if self.parts.graphs[0] is None:
       self.after = None
-    if self.graphs[1] is None:
+    if self.parts.graphs[1] is None:
       self.rows = None
-
-  def replay(self, part: int, fn) -> bool:
-    """Graph ``part`` (0: A, 1: B) of this key: the first run of its code
-    goes eagerly on the side stream that the capture then uses (the
-    warm-up), the next captures it, and every later one replays it. B is
-    captured once A is, since it reads A's buffers."""
-    g = self.graphs[part]
-    if (g is None and self.warm[part]
-        and (part == 0 or self.graphs[0] is not None)):
-      pool = self.graphs[0].graph.pool() if part else None
-      g = self.graphs[part] = solver._Graph(fn, self.stream, pool)
-    if g is not None:
-      g()
-      return True
-    current = torch.cuda.current_stream(self.stream.device)
-    self.stream.wait_stream(current)
-    with torch.cuda.stream(self.stream):
-      fn()
-    current.wait_stream(self.stream)
-    self.warm[part] = True
-    return False
-
-
-# _Staged by key, the most recently used last; the oldest go past _KEEP
-_staged: dict = {}
-_KEEP = 8
 
 
 def _key(m: DeviceModel, d: Data, full_data: bool) -> tuple:
@@ -493,15 +459,8 @@ def _key(m: DeviceModel, d: Data, full_data: bool) -> tuple:
           + tuple((k,) + meta(v) for k, v in sorted(d.overlay.items())))
 
 
-def _entry(m: DeviceModel, d: Data, full_data: bool) -> _Staged:
-  key = _key(m, d, full_data)
-  st = _staged.pop(key, None)
-  if st is None:
-    st = _Staged(m, d, full_data)
-  _staged[key] = st
-  while len(_staged) > _KEEP:
-    del _staged[next(iter(_staged))]
-  return st
+# _Staged by _key
+staged = graphs.Cache()
 
 
 # ---------------------------------------------------------------------------

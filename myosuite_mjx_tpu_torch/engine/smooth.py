@@ -19,11 +19,7 @@ import torch
 from myosuite_mjx_tpu_torch.engine.model import (
     DSBL_GRAVITY, DeviceModel, JointType)
 from myosuite_mjx_tpu_torch.ops import quat as qmath
-
-
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  a, b = torch.broadcast_tensors(a, b)
-  return torch.linalg.cross(a, b, dim=-1)
+from myosuite_mjx_tpu_torch.ops.vec import cross as _cross
 
 
 def motion_cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

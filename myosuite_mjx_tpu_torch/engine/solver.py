@@ -17,32 +17,26 @@ counts them.
 
 On the card each block is one replay of a CUDA graph (``_Staged``): the
 solve's inputs are copied into static buffers kept per shape, and the
-warm-start prologue and one block (``_BLOCK`` iterations, the per-env
-merge, the new live mask and its ``any``) are captured once each. The host
-loop replays the block and reads the flag, one sync a block as before.
-The graphs hold the eager code's kernels, so each env's exit and every
-result are the same bit for bit. The CPU, inputs that require grad and a
-capture already under way take the eager loop.
+warm-start prologue (part 0) and one block (part 1: ``_BLOCK`` iterations,
+the per-env merge, the new live mask and its ``any``) are captured once
+each (``engine/graphs.py``). The host loop replays the block and reads the
+flag, one sync a block as before. The graphs hold the eager code's
+kernels, so each env's exit and every result are the same bit for bit.
+The CPU, inputs that require grad and a capture already under way take
+the eager loop.
 """
 from __future__ import annotations
 
 import torch
 
-from myosuite_mjx_tpu_torch.engine import collision, constraint
+from myosuite_mjx_tpu_torch.engine import graphs
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DSBL_CONTACT, DeviceModel
-from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
+from myosuite_mjx_tpu_torch.ops import linalg
+from myosuite_mjx_tpu_torch.ops.vec import dot as _dot, mv as _mv
 from myosuite_mjx_tpu_torch.utils import spans
 
 _BLOCK = 2   # Newton iterations between two batch-wide exit tests
-
-
-def _mv(A, x):
-  return (A @ x[..., None])[..., 0]
-
-
-def _dot(a, b):
-  return (a * b).sum(-1)
 
 
 def _steps(inputs, iterations: int, ls_iterations: int, tol: float,
@@ -162,12 +156,16 @@ def _newton_solve(m: DeviceModel, d: Data, J, aref, D, is_eq,
                   iterations: int, ls_iterations: int):
   """Returns (qacc [B, nv], force [B, R], iterations run [B]).
 
-  On the card the blocks replay a CUDA graph (``_graph_solve``); the
-  returned tensors are fresh either way.
+  On the card the blocks replay a CUDA graph (``_Staged``); the returned
+  tensors are fresh either way.
   """
   inputs, args = _problem(m, d, J, aref, D, is_eq, iterations, ls_iterations)
-  if _graphable(inputs):
-    return _graph_solve(inputs, args)
+  if graphs.graphable(inputs):
+    st = staged.get(_key(inputs, args), lambda: _Staged(inputs, args))
+    st.stage(inputs)
+    blocks, graphed = st.run(st.parts.run)
+    spans.newton_blocks(blocks, graphed)
+    return st.outputs()
   start, nt_iter, is_live, weights = _steps(inputs, *args)
   carry = start()
   live = is_live(carry)
@@ -207,8 +205,7 @@ class _Staged:
                   x0.new_empty((B,)), x0.new_empty((B,), dtype=torch.int32))
     self.live = x0.new_empty((B,), dtype=torch.bool)
     self.flag = x0.new_empty((), dtype=torch.bool)
-    self.stream = torch.cuda.Stream(x0.device) if x0.is_cuda else None
-    self.graphs = None      # (prologue, block) once captured
+    self.parts = graphs.Parts(x0.device, 2)
 
   def stage(self, inputs) -> None:
     for s, x in zip(self.inputs, inputs):
@@ -230,17 +227,19 @@ class _Staged:
     _merge(self.live, new, self.carry, out=self.carry)
     self._test()
 
-  def run(self, prologue, block) -> int:
-    """The host loop on the staged inputs: ``prologue`` and ``block`` are
-    this object's methods or their graphs' replays. One sync a block plus
-    the exit, as the eager loop; returns the blocks run."""
-    prologue()
+  def run(self, run) -> tuple[int, bool]:
+    """The host loop on the staged inputs: ``run(part, fn)`` runs the
+    prologue (part 0) or a block (part 1), whose code is ``fn``
+    (``parts.run``, or a plain call), and says whether it replayed a
+    graph. One sync a block plus the exit, as the eager loop; returns the
+    blocks run and whether every part run replayed a graph."""
+    graphed = run(0, self.prologue)
     blocks = 0
     while True:
       newton_host_syncs.count += 1
       if not bool(self.flag):
-        return blocks
-      block()
+        return blocks, graphed
+      graphed = run(1, self.block) and graphed
       blocks += 1
 
   def outputs(self):
@@ -248,44 +247,6 @@ class _Staged:
     the next substep's warm start, which the next ``stage`` overwrites."""
     qacc, jar, it = self.carry[0], self.carry[1], self.carry[5]
     return qacc.clone(), -self._weights(jar) * jar, it.clone()
-
-
-# the SPD kernels' launch counters (Python-side: a replay runs no Python)
-_COUNTERS = (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda)
-
-
-class _Graph:
-  """A CUDA graph of ``fn``, captured on ``stream`` into ``pool`` (another
-  graph's ``pool()``, or a private one); calling it replays the graph and
-  adds the SPD launches it holds to their counters (the capture, which
-  launches nothing, takes its count back)."""
-
-  def __init__(self, fn, stream, pool=None):
-    before = [c.launches for c in _COUNTERS]
-    self.graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                          capture_error_mode="thread_local"):
-      fn()
-    self.launches = [c.launches - b for c, b in zip(_COUNTERS, before)]
-    for c, n in zip(_COUNTERS, self.launches):
-      c.launches -= n
-
-  def __call__(self) -> None:
-    self.graph.replay()
-    for c, n in zip(_COUNTERS, self.launches):
-      c.launches += n
-
-
-# _Staged by key, the most recently used last; the oldest go past _KEEP
-_staged: dict = {}
-_KEEP = 8
-
-
-def _graphable(inputs) -> bool:
-  """Whether the solve may replay a graph: CUDA inputs, none requiring
-  grad, and no capture already under way on the current stream."""
-  return (inputs[0].is_cuda and not any(x.requires_grad for x in inputs)
-          and not torch.cuda.is_current_stream_capturing())
 
 
 def _key(inputs, args) -> tuple:
@@ -296,35 +257,8 @@ def _key(inputs, args) -> tuple:
           + (torch.get_float32_matmul_precision(),))
 
 
-def _graph_solve(inputs, args):
-  """The Newton loop on the card, one graph replay a block.
-
-  The first solve at a key runs the staged code eagerly on the side stream
-  that the capture then uses (the warm-up); the next captures the prologue
-  and the block, and every solve from there replays them.
-  """
-  key = _key(inputs, args)
-  st = _staged.pop(key, None)
-  warm = st is not None
-  if st is None:
-    st = _Staged(inputs, args)
-  _staged[key] = st
-  while len(_staged) > _KEEP:
-    del _staged[next(iter(_staged))]
-  if warm:
-    if st.graphs is None:
-      st.graphs = (_Graph(st.prologue, st.stream), _Graph(st.block, st.stream))
-    st.stage(inputs)
-    blocks = st.run(*st.graphs)
-  else:
-    current = torch.cuda.current_stream(st.stream.device)
-    st.stream.wait_stream(current)
-    with torch.cuda.stream(st.stream):
-      st.stage(inputs)
-      blocks = st.run(st.prologue, st.block)
-    current.wait_stream(st.stream)
-  spans.newton_blocks(blocks, graphed=warm)
-  return st.outputs()
+# _Staged by _key
+staged = graphs.Cache()
 
 
 class _SyncCounter:
@@ -339,21 +273,6 @@ def smooth_only(m: DeviceModel, d: Data) -> Data:
   """Constraint-free acceleration: qacc = qacc_smooth."""
   return d.replace(qfrc_constraint=torch.zeros_like(d.qfrc_smooth),
                    qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth)
-
-
-def fwd_constraint(m: DeviceModel, d: Data, full_data: bool = True) -> Data:
-  """Constraint forces and the constrained acceleration.
-
-  ``full_data`` also fills the contact set, contact forces and limit-force
-  diagnostics (see ``forward``). Contacts, the constraint rows and the
-  solve each run in their span, and the solve's per-env iterations feed
-  the Newton counter (``utils/spans.py``).
-  """
-  with spans.span(spans.CONTACTS):
-    contact_blocks, contact_info = collision.contacts(m, d)
-  with spans.span(spans.MAKE_EFC):
-    efc = constraint.make_efc(m, d, contact_blocks)
-  return solve_rows(m, d, efc, contact_blocks, contact_info, full_data)
 
 
 def solve_rows(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,

@@ -18,16 +18,9 @@ import torch
 from myosuite_mjx_tpu_torch.engine import smooth
 from myosuite_mjx_tpu_torch.engine.model import DeviceModel, GeomType, WrapType
 from myosuite_mjx_tpu_torch.ops.consts import const
+from myosuite_mjx_tpu_torch.ops.vec import dot as _dot, norm as _norm
 
 _EPS = 1e-12
-
-
-def _norm(v: torch.Tensor) -> torch.Tensor:
-  return torch.linalg.vector_norm(v, dim=-1)
-
-
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  return (a * b).sum(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -192,8 +192,12 @@ class MyoEnv:
   # ---- helpers ----------------------------------------------------------
 
   def device_model(self, device) -> model_mod.DeviceModel:
-    """The model's constants on ``device`` in this env's dtype (cached)."""
+    """The model's constants on ``device`` in this env's dtype (cached by
+    card: ``"cuda"`` is the current card, so it gives ``"cuda:0"``'s
+    model when that is current)."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+      device = torch.device("cuda", torch.cuda.current_device())
     if device not in self._device_models:
       self._device_models[device] = model_mod.DeviceModel(
           self.model, self.dtype, device)

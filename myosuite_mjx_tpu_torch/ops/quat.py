@@ -12,12 +12,9 @@ import math
 
 import torch
 
+from myosuite_mjx_tpu_torch.ops.vec import cross as _cross
+
 _EPS = 1e-12
-
-
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  a, b = torch.broadcast_tensors(a, b)
-  return torch.linalg.cross(a, b, dim=-1)
 
 
 def _unit(like: torch.Tensor, k: int) -> torch.Tensor:

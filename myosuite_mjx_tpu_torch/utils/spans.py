@@ -17,8 +17,9 @@ or substep, so the outermost range over any moment is a stage:
   ``engine.make_efc``, ``engine.newton`` (the solve and the force scatter)
   and ``engine.euler``; on the card's graph path (``forward.forward``) the
   replay of the smooth stages sits in ``engine.fwd_position`` and that of
-  contacts and rows in ``engine.contacts``, and the four spans between
-  them and ``engine.make_efc`` are not opened,
+  contacts and rows in ``engine.contacts``; the stages' own spans open
+  only nested inside these, while a graph's code warms up or is captured
+  (``engine/graphs.py``),
 - ``env.task`` (obs, reward and done of the stepped state),
 - ``env.reset`` (``autoreset_step``'s fresh reset: its forward stages nest
   inside it),

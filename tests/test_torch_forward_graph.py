@@ -23,7 +23,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from myosuite_mjx_tpu_torch import envs
-from myosuite_mjx_tpu_torch.engine import forward, solver
+from myosuite_mjx_tpu_torch.engine import forward, graphs
 
 B = 4
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -134,10 +134,10 @@ def test_a_new_shape_dtype_model_overlay_or_full_data_makes_a_new_key():
 def test_the_cpu_takes_the_eager_stages():
   m, d, _ = _scene("hand23")
   inputs = tuple(getattr(d, k) for k in forward._INPUTS)
-  assert not solver._graphable(inputs)
-  staged = dict(forward._staged)
+  assert not graphs.graphable(inputs)
+  staged = dict(forward.staged.entries)
   forward.forward(m, d)
-  assert forward._staged == staged
+  assert forward.staged.entries == staged
 
 
 class _HostReads(TorchDispatchMode):

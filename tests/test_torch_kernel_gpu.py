@@ -20,7 +20,8 @@ The Newton solve replayed from its CUDA graphs against the same solves
 run eagerly, bit for bit, in float32 and float64, on hand23 pose and on
 legs80 walk on MyoLeg's knees (equality and contact rows in force); so
 are three autoreset steps of each through the forward's and Newton's
-graphs. Last,
+graphs, and an env gives one ``DeviceModel`` for ``"cuda"`` and
+``"cuda:0"``. Last,
 the rest of the port on the card against the CPU: the reflex controller's
 update, the gym adapter, the CNN encoder, and the data-parallel learners
 at world size 1 on NCCL against the plain step.
@@ -356,7 +357,7 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, scene,
   equality and contact rows hold force."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card")
-  from myosuite_mjx_tpu_torch.engine import solver
+  from myosuite_mjx_tpu_torch.engine import graphs, solver
   make_env, shape, n_eq = GRAPH_SCENES[scene]
   batch = 4096
   solves = []
@@ -378,17 +379,17 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, scene,
   assert len(solves) >= 3 and solves[0][2].shape == (batch,) + shape
 
   def run(args, graph: bool):
-    before = [c.launches for c in solver._COUNTERS]
+    before = [c.launches for c in graphs.COUNTERS]
     syncs = solver.newton_host_syncs.count
     with monkeypatch.context() as mp:
       if not graph:
-        mp.setattr(solver, "_graphable", lambda inputs: False)
+        mp.setattr(graphs, "graphable", lambda tensors: False)
       out = solver._newton_solve(*args)
     torch.cuda.synchronize()
-    return (out, [c.launches - b for c, b in zip(solver._COUNTERS, before)],
+    return (out, [c.launches - b for c, b in zip(graphs.COUNTERS, before)],
             solver.newton_host_syncs.count - syncs)
 
-  solver._staged.clear()
+  solver.staged.clear()
   worst = 0.0
   rows = torch.zeros(shape[0], dtype=torch.int64, device="cuda")
   for args in solves:
@@ -406,8 +407,8 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, scene,
     assert (rows[:n_eq] > 0).all() and rows[-96:].sum() > 0, rows
     print(f"{scene}: envs x solves with force on each equality row "
           f"{rows[:n_eq].tolist()}, on contact rows {int(rows[-96:].sum())}")
-  (staged,) = solver._staged.values()
-  assert staged.graphs is not None
+  (staged,) = solver.staged.entries.values()
+  assert all(g is not None for g in staged.parts.graphs)
   for t in out:
     assert t.data_ptr() not in {s.data_ptr() for s in staged.carry}
   print(f"newton graph replay vs eager, {scene}, {dtype}, {len(solves)} "
@@ -443,7 +444,7 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
   counted. No returned tensor shares memory with a graph's buffers."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card")
-  from myosuite_mjx_tpu_torch.engine import forward, solver
+  from myosuite_mjx_tpu_torch.engine import forward, graphs, solver
   make_env, _, _ = GRAPH_SCENES[scene]
   batch = 4096
   env = make_env(dtype)
@@ -452,14 +453,14 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
                         dtype=dtype) * 2 - 1 for _ in range(3)]
 
   def run(graph: bool):
-    forward._staged.clear()
-    solver._staged.clear()
-    before = [c.launches for c in solver._COUNTERS]
+    forward.staged.clear()
+    solver.staged.clear()
+    before = [c.launches for c in graphs.COUNTERS]
     gen = torch.Generator(device="cuda").manual_seed(1)
     states = []
     with monkeypatch.context() as mp:
       if not graph:
-        mp.setattr(solver, "_graphable", lambda inputs: False)
+        mp.setattr(graphs, "graphable", lambda tensors: False)
       st = env.reset(batch, "cuda", gen)
       steps = torch.arange(batch, device="cuda", dtype=torch.int32) % 4
       st = st.replace(steps=env.horizon - 1 - steps)
@@ -467,10 +468,10 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
         st = env.autoreset_step(st, a, gen)
         states.append(st)
     torch.cuda.synchronize()
-    return states, [c.launches - b for c, b in zip(solver._COUNTERS, before)]
+    return states, [c.launches - b for c, b in zip(graphs.COUNTERS, before)]
 
   eager, eager_launches = run(graph=False)
-  assert not forward._staged
+  assert not forward.staged.entries
   graphed, launches = run(graph=True)
   assert launches == eager_launches and sum(launches) > 0
   worst = 0.0
@@ -484,14 +485,15 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
       assert torch.equal(la[k], lb[k]), (i, k)
     kept = b.info["terminated"] | b.info["truncated"]
     assert kept.any() and not kept.all(), i
-  # the steps' model (the first reset's, asked for "cuda" and not "cuda:0",
-  # is another, whose one pass only warmed up)
+  # the first reset, asked for "cuda", and the steps, on "cuda:0", share
+  # one model, so every key's graph A was captured
   stepped = env.device_model(graphed[-1].data.qpos.device)
-  staged = [st for st in forward._staged.values() if st.m is stepped]
-  assert staged and all(st.graphs[0] is not None for st in staged)
-  assert any(st.graphs[1] is not None for st in staged)
+  staged = list(forward.staged.entries.values())
+  assert staged and all(st.m is stepped for st in staged)
+  assert all(st.parts.graphs[0] is not None for st in staged)
+  assert any(st.parts.graphs[1] is not None for st in staged)
   buffers = set()
-  for st in forward._staged.values():
+  for st in staged:
     for _, t in _state_leaves({"in": st.inputs, "ov": st.overlay,
                                "after": st.after}):
       buffers.add(t.untyped_storage().data_ptr())
@@ -504,6 +506,21 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
         assert t.untyped_storage().data_ptr() not in buffers, k
   print(f"forward graph replay vs eager, {scene}, {dtype}, 3 autoreset "
         f"steps: largest difference {worst}, SPD launches {launches}")
+
+
+@pytest.mark.gpu
+def test_default_cuda_device_shares_the_indexed_device_model():
+  """``"cuda"`` and ``"cuda:0"`` name one card, so an env gives one
+  ``DeviceModel`` for both: a ``BatchedEnv`` on the default device resets
+  and steps on one model."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  env = _hand23_pose(torch.float32)
+  current = torch.device("cuda", torch.cuda.current_device())
+  dm = env.device_model("cuda")
+  assert env.device_model(current) is dm
+  assert env.device_model(torch.device("cuda")) is dm
+  assert dm.device == current
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 """The Newton solve's staged path (``engine/solver.py`` ``_Staged``), the
 code a CUDA graph replays on the card, run on the CPU through the same host
-loop with its block function called in place of a replay.
+loop with its prologue and block called in place of a replay.
 
 On real Newton inputs (the solves of one control step: hand23 pose with
 random actions, contact rows in force; hand23 pose with every muscle
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from myosuite_mjx_tpu_torch import envs
-from myosuite_mjx_tpu_torch.engine import solver
+from myosuite_mjx_tpu_torch.engine import graphs, solver
 
 B = 4
 # (task, action: "random" or a constant, control steps); the solves of the
@@ -74,10 +74,17 @@ def _rows_in_force(efc, contact_blocks) -> dict:
           "contact": int(force[:, J.shape[1] - nc:].sum()) if nc else 0}
 
 
+def _plain(part, fn) -> bool:
+  """The staged loop's ``run`` without a card: call the part's code."""
+  fn()
+  return False
+
+
 def _staged(st, inputs):
   syncs = solver.newton_host_syncs.count
   st.stage(inputs)
-  blocks = st.run(st.prologue, st.block)
+  blocks, graphed = st.run(_plain)
+  assert not graphed
   return st.outputs(), solver.newton_host_syncs.count - syncs, blocks
 
 
@@ -141,8 +148,8 @@ def test_a_new_shape_or_scalar_makes_a_new_key():
 def test_the_cpu_takes_the_eager_loop():
   m, d, efc, _ = _solves("pose")[0]
   inputs, _ = _problem(m, d, efc)
-  assert not solver._graphable(inputs)
-  staged = dict(solver._staged)
+  assert not graphs.graphable(inputs)
+  staged = dict(solver.staged.entries)
   solver._newton_solve(m, d, *efc[:4], int(m.opt.solver_iterations),
                        int(m.opt.ls_iterations))
-  assert solver._staged == staged
+  assert solver.staged.entries == staged

@@ -12,7 +12,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    all started together, and prints registers and spills of each padded
    size or type they are built for (the general kernel's ten instances by
    route: ``reg_kernel`` at each of ``GENERAL_PADDED_SIZES``, ``tile`` and
-   ``inplace`` in both types); fails if one is missing or spills;
+   ``inplace`` in both types); fails if one is missing or spills; and the
+   Newton kernel (csrc/newton_solve.cu), printing registers and spills of
+   its four instances (float32 and float64 at ``NEWTON_PADDED_SIZES``);
 3. kernel check: the register kernel against its plain PyTorch version and
    against
    float64 ``torch.linalg.solve`` on random SPD batches (every padded size
@@ -39,11 +41,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    register kernel at [4096, 23] float64 and [4096, 72] float32. Last, the
    register kernel (NP 64) and the general kernel's float32 route on the
    same [4096, 35] and [4096, 50] systems, each held against the plain
-   version and timed as 50 launches in a CUDA graph, in turns;
+   version and timed as 50 launches in a CUDA graph, in turns. Last, the
+   Newton kernel against the eager loop (``engine/solver.py`` ``_steps``)
+   on every solve of two control steps at B = 4096 of hand23 pose
+   ([4096, 119, 23]) and legs80 walk on MyoLeg's knees ([4096, 138, 34]),
+   float32, at ``NEWTON_BOUNDS``; each scene's last solve timed (CUDA
+   events) through the kernel and the eager loop, beside the bound of
+   reading its inputs and writing its outputs once;
 4. main path: ``PoseEnv`` on the synthetic hand23 scene with the
    myoHandPoseFixed-v0 task, ``BatchedEnv`` of 4096 envs, ``init`` and 105
    control steps, so every env crosses horizon 100 once; checks finite
-   outputs, the autoreset, the kernel launch count and the precision pin;
+   outputs, the autoreset, the SPD and Newton kernels' launch counts and
+   the precision pin;
 5. card against CPU: 5 control steps of the same 16 envs on the card
    (float32, kernel) and on the CPU (float64, plain version);
 6. train: ``NPG.train`` on hand23 at the zoo run's width (512 trajectories
@@ -235,13 +244,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``tools/convergence_study.py`` on the hold scene at B = 512 for 5
    substeps.
 
-Every (dtype, B, n) at which phases 4-18 launch a kernel must be among
-those phase 3 checked. Phases 9's and 13-18's CPU runs are computed in
-one worker process (``cpu_references_conditions``, then
-``cpu_references``), started after phase 2 and joined at phases 9 and 13,
-while the card runs the phases before them.
+Every (dtype, B, n) at which phases 4-18 launch an SPD kernel must be
+among those phase 3 checked, and the Newton kernel must launch in phase 4
+and in a later phase (its launches in phases 4-18 are counted). Phases
+9's and 13-18's CPU runs are computed in one worker process
+(``cpu_references_conditions``, then ``cpu_references``), started after
+phase 2 and joined at phases 9 and 13, while the card runs the phases
+before them.
 
-The line before the last is the kernels' JSON record (both kernels); the
+The line before the last is the kernels' JSON record (all three); the
 last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -272,6 +283,8 @@ B_MAIN = 4096
 STEPS = 105
 WARMUP = 2
 HAND23 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "hand23.npz")
+LEGS80_KNEE = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets",
+                           "legs80_knee.npz")
 FREE10 = os.path.join(ROOT, "myosuite_mjx_tpu_torch", "assets", "free10.npz")
 # the kernel is built for these padded sizes: cover each and its ends, and
 # n = 1; 10 is free10's nv (phase 12), 24 and 29 the hand-object scenes'
@@ -650,6 +663,38 @@ def _ptxas_report(log: str) -> dict:
   return out
 
 
+# the fused Newton kernel's instances: nv padded to whole lanes' slots
+NEWTON_PADDED_SIZES = (32, 64)
+# phase 3, the Newton kernel against the eager loop (float32 both) on every
+# solve of two control steps at B_MAIN: bounds on the envs' relative errors
+# in qacc and force (median, 0.999 quantile, largest) and on the share of
+# envs that run as many iterations, those of tests/test_torch_newton_kernel.py
+# (its card readings: 3.3e-7, 2.2e-3, 7.6e-3; 79.8% on the walk)
+NEWTON_BOUNDS = (3e-6, 8e-3, 3e-2)
+NEWTON_SAME_ITERATIONS = 0.7
+
+
+def _ptxas_newton(log: str) -> dict:
+  """Registers and spill bytes of each instance of the Newton kernel, by
+  type and padded nv: ``float32 NP=32``."""
+  types = {"f": "float32", "d": "float64"}
+  out, kind = {}, None
+  for ln in log.splitlines():
+    m = re.search(r"newton_solve_kernelI([fd])Li(\d+)E", ln)
+    if "Compiling entry function" in ln:
+      kind = (f"{types[m.group(1)]} NP={32 * int(m.group(2))}" if m
+              else None)
+      if kind:
+        out[kind] = {}
+    elif kind is not None:
+      if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        ln):
+        out[kind]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+      if m := re.search(r"Used (\d+) registers", ln):
+        out[kind]["registers"] = int(m.group(1))
+  return out
+
+
 def _ptxas_general(log: str) -> dict:
   """Registers and spill bytes of each instance of the general kernel, by
   route and padded size or type: ``reg NP=24 float64 (G 8, SB 8)``,
@@ -683,14 +728,24 @@ def _ptxas_general(log: str) -> dict:
 def phase_build():
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
   # one nvcc per source, started together
-  with concurrent.futures.ThreadPoolExecutor(2) as ex:
-    builds = [ex.submit(cuda_linalg.build, source=src)
-              for src in (cuda_linalg.SOURCE, cuda_linalg.GENERAL_SOURCE)]
-    (path, seconds, log), (gpath, gseconds, glog) = [b.result()
-                                                     for b in builds]
-  for p, sec in ((path, seconds), (gpath, gseconds)):
+  sources = (cuda_linalg.SOURCE, cuda_linalg.GENERAL_SOURCE,
+             cuda_linalg.NEWTON_SOURCE)
+  with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+    builds = [ex.submit(cuda_linalg.build, source=src) for src in sources]
+    ((path, seconds, log), (gpath, gseconds, glog),
+     (npath, nseconds, nlog)) = [b.result() for b in builds]
+  for p, sec in ((path, seconds), (gpath, gseconds), (npath, nseconds)):
     _say(f"build: {sec:.2f} s -> {os.path.relpath(p, ROOT)}"
          f"{'' if sec else ' (already built)'}")
+  newton = _ptxas_newton(nlog)
+  expected = [f"{t} NP={np_}" for t in ("float32", "float64")
+              for np_ in NEWTON_PADDED_SIZES]
+  if sorted(newton) != sorted(expected):
+    raise AssertionError(f"ptxas reported Newton kernel instances "
+                         f"{sorted(newton)}, expected {sorted(expected)}")
+  for kind, rep in sorted(newton.items()):
+    _say(f"build: Newton kernel, {kind}: {rep.get('registers')} registers, "
+         f"{rep.get('spill_bytes')} bytes spilled")
   general = _ptxas_general(glog)
   expected = ([f"reg NP={np_} float64" for np_ in GENERAL_PADDED_SIZES]
               + [f"{r} {t}" for r in ("tile", "inplace")
@@ -716,7 +771,7 @@ def phase_build():
          f"registers, {rep.get('spill_bytes')} bytes spilled")
     if rep.get("spill_bytes") != 0:
       raise AssertionError(f"NP={size} spills registers (or no report)")
-  return general
+  return {"spd_solve_general": general, "newton_solve": newton}
 
 
 def _time_ms(fn, reps: int = 50) -> float:
@@ -1161,13 +1216,126 @@ def phase_f32_compare() -> dict:
   return out
 
 
+def _newton_solves(scene: str) -> list:
+  """``_newton_solve``'s arguments at every solve of two control steps of
+  hand23 pose or legs80 walk on MyoLeg's knees at B_MAIN (the walk's
+  resets' solves included), copied: the rows come from a graph's buffers,
+  which the next replay overwrites."""
+  from myosuite_mjx_tpu_torch import envs
+  from myosuite_mjx_tpu_torch.engine import solver
+  from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
+  from myosuite_mjx_tpu_torch.envs.pose import HAND_POSE_FIXED, PoseEnv
+  env = (PoseEnv(HAND23, **HAND_POSE_FIXED) if scene == "hand23"
+         else envs.make("legs80Walk-v0", model_path=LEGS80_KNEE))
+  benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
+  g = torch.Generator(device=DEVICE).manual_seed(0)
+  st = benv.init()
+  rec, inner = [], solver._newton_solve
+
+  def recorded(m, d, J, aref, D, is_eq, *caps):
+    rec.append((m, d.replace(qM=d.qM.clone(),
+                             qacc_smooth=d.qacc_smooth.clone(),
+                             qacc_warmstart=d.qacc_warmstart.clone()),
+                J.clone(), aref.clone(), D.clone(), is_eq.clone(), *caps))
+    return inner(m, d, J, aref, D, is_eq, *caps)
+
+  solver._newton_solve = recorded
+  try:
+    for _ in range(2):
+      st = benv.step(st, torch.rand((B_MAIN, env.action_dim), generator=g,
+                                    device=DEVICE) * 2 - 1)
+  finally:
+    solver._newton_solve = inner
+  return rec
+
+
+def _newton_run(args, how: str):
+  """``_newton_solve`` on ``args`` by the route ``how``."""
+  from myosuite_mjx_tpu_torch.engine import solver
+  route = solver.route
+  solver.route = lambda *a: how
+  try:
+    out = solver._newton_solve(*args)
+  finally:
+    solver.route = route
+  torch.cuda.synchronize()
+  return out
+
+
+def _env_rel_errors(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+  """Per env: the largest gap of a from b over b's largest magnitude in
+  that env (floor: 1e-6 of the whole b's)."""
+  a, b = a.double(), b.double()
+  scale = b.abs().amax(-1).clamp(min=1e-6 * float(b.abs().max()) + 1e-300)
+  return ((a - b).abs().amax(-1) / scale).cpu().numpy()
+
+
+def phase_newton_check() -> dict:
+  """Phase 3, the Newton kernel: against the eager loop on every solve of
+  two control steps of hand23 pose ([B_MAIN, 119, 23]) and legs80 walk
+  ([B_MAIN, 138, 34]), float32, at NEWTON_BOUNDS; then, on each scene's
+  last solve, the kernel and the eager loop timed (CUDA events) against
+  the bound of reading the inputs and writing the outputs once."""
+  from myosuite_mjx_tpu_torch.engine import solver
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  out = {}
+  for scene in ("hand23", "legs80"):
+    solves = _newton_solves(scene)
+    n0 = cuda_linalg.newton_solve_cuda.launches
+    worst = {"qacc": [0.0] * 3, "force": [0.0] * 3}
+    same = 1.0
+    for args in solves:
+      kernel = _newton_run(args, solver.KERNEL)
+      eager = _newton_run(args, solver.EAGER)
+      for k, name in enumerate(("qacc", "force")):
+        err = _env_rel_errors(kernel[k], eager[k])
+        got = (float(np.median(err)), float(np.quantile(err, 0.999)),
+               float(err.max()))
+        worst[name] = [max(w, x) for w, x in zip(worst[name], got)]
+      same = min(same, float((kernel[2] == eager[2]).double().mean()))
+    launched = cuda_linalg.newton_solve_cuda.launches - n0
+    J = solves[-1][2]
+    shape = tuple(J.shape)
+    ok = (all(w <= b for v in worst.values()
+              for w, b in zip(v, NEWTON_BOUNDS))
+          and same >= NEWTON_SAME_ITERATIONS and launched == len(solves))
+    _say(f"newton_solve {scene} {shape} float32, {len(solves)} solves, "
+         f"kernel against the eager loop: envs' relative error (median, "
+         f"0.999, largest) qacc {worst['qacc']}, force {worst['force']} "
+         f"(bounds {NEWTON_BOUNDS}); same iterations in >= {same:.4f} of "
+         f"the envs (bound {NEWTON_SAME_ITERATIONS}); {launched} launches "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"the Newton kernel disagrees with the eager "
+                           f"loop on {scene}")
+    inputs, rest = solver._problem(*solves[-1])
+    ms = _time_ms(lambda: cuda_linalg.newton_solve_cuda(*inputs, *rest))
+    eager_ms = _time_ms(lambda: _newton_run(solves[-1], solver.EAGER),
+                        reps=5)
+    B, R, nv = shape
+    moved = (B * J.element_size() * (nv * nv + 2 * nv + R * nv + 2 * R
+                                     + nv + R) + B * 4)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    _say(f"newton_solve {scene} {shape} float32 (CUDA events): kernel "
+         f"{ms:.4f} ms a solve, eager loop {eager_ms:.3f} ms; bound "
+         f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB once), kernel at "
+         f"{bound_ms / ms:.3f} of it")
+    out[scene] = {"shape": list(shape), "ms": ms, "eager_ms": eager_ms,
+                  "bound_ms": bound_ms, "bound_by": "bytes",
+                  "max_rel_err_qacc": worst["qacc"][2],
+                  "max_rel_err_force": worst["force"][2],
+                  "same_iterations": same}
+  return out
+
+
 def phase_kernels() -> dict:
   """Phase 3: the register kernel, the general kernel, then the two on
-  float32 systems with 33 <= n <= 64."""
+  float32 systems with 33 <= n <= 64, then the Newton kernel."""
   out = {}
   for name, fn in (("spd_solve", phase_kernel_check),
                    ("spd_solve_general", phase_general_check),
-                   ("f32_compare", phase_f32_compare)):
+                   ("f32_compare", phase_f32_compare),
+                   ("newton_solve", phase_newton_check)):
     t0 = time.perf_counter()
     out[name] = fn()
     _say(f"phase 3, {name}: {time.perf_counter() - t0:.1f} s")
@@ -1186,6 +1354,7 @@ def phase_main_path() -> dict:
   torch.cuda.synchronize()
 
   cuda_linalg.spd_solve_cuda.launches = 0
+  cuda_linalg.newton_solve_cuda.launches = 0
   solver.newton_host_syncs.count = 0
   benv = base.BatchedEnv(env, B_MAIN, DEVICE, seed=0)
   state = benv.init()
@@ -1205,6 +1374,7 @@ def phase_main_path() -> dict:
   torch.cuda.synchronize()
   seconds = time.perf_counter() - t0
   launches = cuda_linalg.spd_solve_cuda.launches
+  newton_launches = cuda_linalg.newton_solve_cuda.launches
   syncs = solver.newton_host_syncs.count - syncs0
 
   for name, x in (("obs", state.obs), ("reward", state.reward),
@@ -1216,6 +1386,8 @@ def phase_main_path() -> dict:
     raise AssertionError(f"{int((~restarted).sum())} envs never reset")
   if launches <= 0:
     raise AssertionError("the main path never launched the kernel")
+  if newton_launches <= 0:
+    raise AssertionError("the main path never launched the Newton kernel")
   if not base.precision_pinned():
     raise AssertionError("float32 matmul precision lost its pin")
   timed = STEPS - WARMUP
@@ -1224,11 +1396,12 @@ def phase_main_path() -> dict:
        f"(frame_skip {env.frame_skip}), autoreset {restarts} envs, "
        f"ne_active mean {float(state.data.ne_active.float().mean()):.2f}, "
        f"reward mean {float(state.reward.mean()):.4f}")
-  _say(f"main path: spd_solve launches {launches}; Newton host syncs "
+  _say(f"main path: spd_solve launches {launches}, newton_solve launches "
+       f"{newton_launches}; Newton host syncs "
        f"{syncs / timed:.2f} per control step; {timed} timed steps in "
        f"{seconds:.3f} s: {ctrl_rate * env.frame_skip:.1f} physics-steps/s, "
        f"{ctrl_rate:.1f} control-steps/s")
-  return {"launches": launches,
+  return {"launches": launches, "newton_launches": newton_launches,
           "physics_steps_per_s": ctrl_rate * env.frame_skip}
 
 
@@ -3905,6 +4078,11 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
     general_4_16 = cuda_linalg.spd_solve_general_cuda.launches
     general_path = _timed_phase(17, phase_general_paths, cpu_refs)
     rest = _timed_phase(18, phase_rest_of_port, cpu_refs)
+  # phase 4 set the count to 0
+  newton_4_18 = cuda_linalg.newton_solve_cuda.launches
+  _say(f"newton_solve launches in phases 4-18: {newton_4_18}")
+  if newton_4_18 <= main_path["newton_launches"]:
+    raise AssertionError("no phase after 4 launched the Newton kernel")
   unchecked = shapes - _checked_shapes()
   _say(f"spd_solve (dtype, B, n) launched in phases 4-18: {sorted(shapes)}; "
        f"not held against the plain version in phase 3: "
@@ -3934,7 +4112,13 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
          for k, v in general_path["parts"].items()},
       "phases4_16_launches": general_4_16, **general,
       "float32_register_vs_general": kernels["f32_compare"],
-      "instances": instances}]}))
+      "instances": instances["spd_solve_general"]}, {
+      "name": "newton_solve", "route": "cuda",
+      "source": "myosuite_mjx_tpu_torch/csrc/newton_solve.cu",
+      "replaces": "myosuite_mjx_tpu/engine/solver.py:42",
+      "launches": main_path["newton_launches"],
+      "phases4_18_launches": newton_4_18, **kernels["newton_solve"],
+      "instances": instances["newton_solve"]}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

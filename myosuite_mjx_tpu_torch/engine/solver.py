@@ -15,15 +15,23 @@ live mask updated only at block ends, capped by ``opt.solver_iterations``.
 Each block costs one host sync (``live.any()``); ``newton_host_syncs``
 counts them.
 
-On the card each block is one replay of a CUDA graph (``_Staged``): the
-solve's inputs are copied into static buffers kept per shape, and the
-warm-start prologue (part 0) and one block (part 1: ``_BLOCK`` iterations,
-the per-env merge, the new live mask and its ``any``) are captured once
-each (``engine/graphs.py``). The host loop replays the block and reads the
-flag, one sync a block as before. The graphs hold the eager code's
-kernels, so each env's exit and every result are the same bit for bit.
-The CPU, inputs that require grad and a capture already under way take
-the eager loop.
+``route`` picks how a solve runs from what its inputs show: device, dtype,
+nv, grad, and a capture under way.
+
+- On the card, float32 or float64 with nv <= 64: one launch of the fused
+  kernel (``csrc/newton_solve.cu``, ``cuda_linalg.newton_solve_cuda``),
+  a warp per env running ``_steps``' arithmetic from the warm start to
+  that env's own exit. No block runs on the host and nothing syncs.
+- On the card otherwise (nv > 64): each block is one replay of a CUDA
+  graph (``_Staged``): the solve's inputs are copied into static buffers
+  kept per shape, and the warm-start prologue (part 0) and one block
+  (part 1: ``_BLOCK`` iterations, the per-env merge, the new live mask
+  and its ``any``) are captured once each (``engine/graphs.py``). The
+  host loop replays the block and reads the flag, one sync a block. The
+  graphs hold the eager code's kernels, so each env's exit and every
+  result are the eager loop's bit for bit.
+- The CPU, inputs that require grad and a capture already under way take
+  the eager loop, the reference of the other two.
 """
 from __future__ import annotations
 
@@ -32,11 +40,11 @@ import torch
 from myosuite_mjx_tpu_torch.engine import graphs
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DSBL_CONTACT, DeviceModel
-from myosuite_mjx_tpu_torch.ops import linalg
+from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
 from myosuite_mjx_tpu_torch.ops.vec import dot as _dot, mv as _mv
 from myosuite_mjx_tpu_torch.utils import spans
 
-_BLOCK = 2   # Newton iterations between two batch-wide exit tests
+_BLOCK = 2   # Newton iterations between two exit tests (the kernel's kBlock)
 
 
 def _steps(inputs, iterations: int, ls_iterations: int, tol: float,
@@ -152,15 +160,37 @@ def _problem(m: DeviceModel, d: Data, J, aref, D, is_eq, iterations: int,
           (iterations, ls_iterations, tol, m.opt.ls_tolerance))
 
 
+KERNEL, STAGED, EAGER = "kernel", "staged", "eager"
+
+
+def route(device_type: str, dtype: torch.dtype, nv: int, grad: bool,
+          capturing: bool = False) -> str:
+  """How a solve runs (see the module's docstring): ``EAGER`` off the
+  card, where an input requires grad, or while a capture is under way;
+  ``KERNEL`` on the card for float32 or float64 with nv <= 64; ``STAGED``
+  for the rest on the card."""
+  if device_type != "cuda" or grad or capturing:
+    return EAGER
+  if (dtype in (torch.float32, torch.float64)
+      and nv <= cuda_linalg.NEWTON_MAX_NV):
+    return KERNEL
+  return STAGED
+
+
 def _newton_solve(m: DeviceModel, d: Data, J, aref, D, is_eq,
                   iterations: int, ls_iterations: int):
-  """Returns (qacc [B, nv], force [B, R], iterations run [B]).
-
-  On the card the blocks replay a CUDA graph (``_Staged``); the returned
-  tensors are fresh either way.
-  """
+  """Returns (qacc [B, nv], force [B, R], iterations run [B]), fresh
+  tensors on every route."""
   inputs, args = _problem(m, d, J, aref, D, is_eq, iterations, ls_iterations)
-  if graphs.graphable(inputs):
+  how = route(J.device.type, J.dtype, J.shape[-1],
+              any(t.requires_grad for t in inputs),
+              J.is_cuda and torch.cuda.is_current_stream_capturing())
+  if J.is_cuda:
+    spans.newton_fused(how == KERNEL)
+  if how == KERNEL:
+    return cuda_linalg.newton_solve_cuda(
+        *(t.contiguous() for t in inputs), *args)
+  if how == STAGED:
     st = staged.get(_key(inputs, args), lambda: _Staged(inputs, args))
     st.stage(inputs)
     blocks, graphed = st.run(st.parts.run)

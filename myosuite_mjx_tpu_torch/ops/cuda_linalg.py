@@ -1,9 +1,12 @@
-"""CUDA builds and wrappers for the batched SPD-solve kernels.
+"""CUDA builds and wrappers for the port's kernels.
 
-Two kernels, each its own library: the register kernel (csrc/spd_solve.cu)
-takes float32 with 1 <= n <= 64, the main path's solves; the general kernel
-(csrc/spd_solve_general.cu) takes every other float32 or float64 solve (the
-reference's unrolled ``chol_factor`` route). ``spd_solve_cuda`` picks one.
+Three kernels, each its own library. Two solve batched SPD systems: the
+register kernel (csrc/spd_solve.cu) takes float32 with 1 <= n <= 64, the
+main path's solves; the general kernel (csrc/spd_solve_general.cu) takes
+every other float32 or float64 solve (the reference's unrolled
+``chol_factor`` route). ``spd_solve_cuda`` picks one. The third
+(csrc/newton_solve.cu, ``newton_solve_cuda``) runs the constraint solve's
+whole Newton loop, one env per warp, float32 or float64 with nv <= 64.
 
 Each kernel is compiled from the package's source at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
@@ -27,8 +30,10 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "spd_solve.cu")
 GENERAL_SOURCE = os.path.join(_PKG_DIR, "csrc", "spd_solve_general.cu")
+NEWTON_SOURCE = os.path.join(_PKG_DIR, "csrc", "newton_solve.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 MAX_N = 64
+NEWTON_MAX_NV = 64
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -84,13 +89,17 @@ def build(verbose: bool = False,
   return path, seconds, proc.stderr
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_NEWTON_ARGS = [_P] * 7 + [_I] + [_P] * 4 + [_I] * 5 + [_D, _D, _P]
 # C functions of each library and their argument types
 _SIGNATURES = {
     SOURCE: {"spd_solve_f32": [_P, _P, _P, _P, _I, _I, _P]},
     GENERAL_SOURCE: {"spd_solve_general_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
                      "spd_solve_general_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
                      "spd_solve_general_max_shared_n": [_I]},
+    NEWTON_SOURCE: {"newton_solve_f32": _NEWTON_ARGS,
+                    "newton_solve_f64": _NEWTON_ARGS,
+                    "newton_solve_needs_scratch": [_I, _I, _I]},
 }
 
 
@@ -197,3 +206,74 @@ def general_max_shared_n(dtype: torch.dtype) -> int:
     raise RuntimeError(f"reading the shared-memory limit failed: cudaError "
                        f"{-n}")
   return n
+
+
+def newton_solve_cuda(qM: torch.Tensor, x0: torch.Tensor, ws: torch.Tensor,
+                      J: torch.Tensor, aref: torch.Tensor, D: torch.Tensor,
+                      is_eq: torch.Tensor, iterations: int,
+                      ls_iterations: int, tol: float, ls_tol: float):
+  """Launch the fused Newton kernel (csrc/newton_solve.cu): the solve of
+  ``engine/solver.py`` ``_steps`` for each env, warm start to its own
+  exit, its live test made every ``solver._BLOCK`` iterations (the
+  kernel's ``kBlock``).
+
+  Takes qM [B, nv, nv], x0 (qacc_smooth) and ws (the warm start) [B, nv],
+  J [B, R, nv], aref and D [B, R], all float32 or all float64, and is_eq
+  bool [R] or [B, R]; contiguous CUDA tensors on one device, 1 <= nv <= 64,
+  none requiring grad. Raises on anything else. Returns fresh (qacc
+  [B, nv], force [B, R], iterations [B] int32). Launches on the current
+  stream without synchronising and counts the launch in
+  ``newton_solve_cuda.launches``.
+  """
+  tensors = (qM, x0, ws, J, aref, D, is_eq)
+  if not all(t.is_cuda for t in tensors) or len(
+      {t.device for t in tensors}) != 1:
+    raise ValueError("newton_solve_cuda needs CUDA tensors on one device, "
+                     f"got {sorted({str(t.device) for t in tensors})}")
+  dtype = J.dtype
+  if dtype not in (torch.float32, torch.float64) or any(
+      t.dtype != dtype for t in tensors[:6]) or is_eq.dtype != torch.bool:
+    raise TypeError("newton_solve_cuda takes float32 or float64 alike and a "
+                    f"bool is_eq, got {[t.dtype for t in tensors]}")
+  if J.ndim != 3:
+    raise ValueError(f"newton_solve_cuda needs J [B, R, nv], got "
+                     f"{tuple(J.shape)}")
+  B, R, nv = J.shape
+  shapes = ((qM, (B, nv, nv)), (x0, (B, nv)), (ws, (B, nv)),
+            (aref, (B, R)), (D, (B, R)))
+  if (not 1 <= nv <= NEWTON_MAX_NV or any(tuple(t.shape) != s
+                                          for t, s in shapes)
+      or tuple(is_eq.shape) not in ((R,), (B, R))):
+    raise ValueError("newton_solve_cuda needs qM [B, nv, nv], x0 and ws "
+                     "[B, nv], J [B, R, nv], aref and D [B, R], is_eq [R] or "
+                     f"[B, R], 1 <= nv <= {NEWTON_MAX_NV}; got "
+                     f"{[tuple(t.shape) for t in tensors]}")
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError("newton_solve_cuda needs contiguous inputs")
+  if any(t.requires_grad for t in tensors):
+    raise ValueError("newton_solve_cuda takes no input that requires grad")
+  qacc = torch.empty_like(x0)
+  force = J.new_empty((B, R))
+  its = torch.empty((B,), dtype=torch.int32, device=J.device)
+  if B:
+    lib = _load(NEWTON_SOURCE)
+    # the rows' scratch, only where one env's rows overflow shared memory
+    rows = (J.new_empty((B, 2, R))
+            if lib.newton_solve_needs_scratch(R, nv, J.element_size())
+            else None)
+    fn = (lib.newton_solve_f64 if dtype == torch.float64
+          else lib.newton_solve_f32)
+    with torch.cuda.device(J.device):
+      stream = torch.cuda.current_stream(J.device).cuda_stream
+      rc = fn(*(t.data_ptr() for t in (qM, x0, ws, J, aref, D, is_eq)),
+              R if is_eq.ndim == 2 else 0,
+              *(t.data_ptr() for t in (qacc, force, its)),
+              None if rows is None else rows.data_ptr(),
+              B, R, nv, iterations, ls_iterations, tol, ls_tol, stream)
+    if rc != 0:
+      raise RuntimeError(f"newton_solve kernel launch failed: cudaError {rc}")
+    newton_solve_cuda.launches += 1
+  return qacc, force, its
+
+
+newton_solve_cuda.launches = 0

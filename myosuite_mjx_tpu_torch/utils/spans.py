@@ -33,7 +33,9 @@ with the trace's readers (``benchmark/metrics/idle_share.*.py``,
 The Newton counter keeps each solve's per-env iteration counts [B] (no sync,
 no launch) and reduces them only when ``newton_work`` reads them. Beside
 it, ``newton_graph_blocks`` counts the Newton blocks run from a CUDA graph
-and all Newton blocks (``engine/solver.py``), and ``forward_graph_passes``
+and all Newton blocks (``engine/solver.py``; the fused kernel's solves run
+no block on the host), ``newton_fused_solves`` the solves on the card and
+those the fused Newton kernel served, and ``forward_graph_passes``
 the forward passes on the card served by CUDA graph replays and all forward
 passes on the card (``engine/forward.py``). Two more counters follow the
 same rule: ``efc_rows_used`` keeps each solve's per-env count of rows
@@ -83,6 +85,9 @@ def span(name: str):
 _kept: list = []
 # Newton blocks since the latest recording began: [from a graph, all]
 _blocks = [0, 0]
+# Newton solves on the card since the latest recording began: [served by
+# the fused kernel, all]
+_fused = [0, 0]
 # forward passes on the card since the latest recording began: [served by
 # graph replays, all]
 _forwards = [0, 0]
@@ -104,6 +109,7 @@ def _keeping() -> bool:
   if _stale:
     _kept.clear()
     _blocks[:] = [0, 0]
+    _fused[:] = [0, 0]
     _forwards[:] = [0, 0]
     _rows.clear()
     _resets.clear()
@@ -129,6 +135,20 @@ def newton_graph_blocks() -> tuple[int, int]:
   """(Newton blocks run from a CUDA graph, all Newton blocks) over the
   solves of the latest recording."""
   return _blocks[0], _blocks[1]
+
+
+def newton_fused(fused: bool) -> None:
+  """Count one Newton solve on the card, served by the fused kernel or
+  not, while a profiler records."""
+  if _keeping():
+    _fused[0] += bool(fused)
+    _fused[1] += 1
+
+
+def newton_fused_solves() -> tuple[int, int]:
+  """(Newton solves on the card served by the fused kernel, all Newton
+  solves on the card) over the latest recording."""
+  return _fused[0], _fused[1]
 
 
 def forward_pass(graphed: bool) -> None:

@@ -16,12 +16,13 @@ H100), with and without the factor, at one system, B = 16, 4096 and 4097;
 misaligned views (the plain loads); the clamp cases (pivots that reach 0 or
 go below tiny); and the entry points that run through it: a float64
 ``MyoEnv`` and ``Physics`` on chain72 (nv 72), each against the CPU.
-The Newton solve replayed from its CUDA graphs against the same solves
-run eagerly, bit for bit, in float32 and float64, on hand23 pose and on
-legs80 walk on MyoLeg's knees (equality and contact rows in force); so
-are three autoreset steps of each through the forward's and Newton's
-graphs, and an env gives one ``DeviceModel`` for ``"cuda"`` and
-``"cuda:0"``. Last,
+The Newton solve replayed from its CUDA graphs (the path of nv > 64,
+forced here) against the same solves run eagerly, bit for bit, in float32
+and float64, on hand23 pose and on legs80 walk on MyoLeg's knees
+(equality and contact rows in force); so are three autoreset steps of
+each through the forward's graphs (Newton in the fused kernel,
+``tests/test_torch_newton_kernel.py``, on both sides), and an env gives
+one ``DeviceModel`` for ``"cuda"`` and ``"cuda:0"``. Last,
 the rest of the port on the card against the CPU: the reflex controller's
 update, the gym adapter, the CNN encoder, and the data-parallel learners
 at world size 1 on NCCL against the plain step.
@@ -349,8 +350,9 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, scene,
   (``legs80_knee``, [4096, 138, 34]: the knees' 14 equality rows, the
   feet's contacts on the floor, and each
   step's reset solving its own), each run eagerly and through the graph
-  path from an empty cache (the warm-up on the side stream, the capture,
-  then replays): qacc, force and per-env iterations bit for bit, the same
+  path (``route`` forced: these shapes take the fused kernel, the graph
+  path nv > 64) from an empty cache (the warm-up on the side stream, the
+  capture, then replays): qacc, force and per-env iterations bit for bit, the same
   host syncs, the same SPD launches counted (float32 in the register
   kernel's counter, float64 in the general kernel's), and returned
   tensors that are not the graph's static buffers. On legs80 the
@@ -382,8 +384,10 @@ def test_newton_graph_replay_matches_eager_on_card(dtype, scene,
     before = [c.launches for c in graphs.COUNTERS]
     syncs = solver.newton_host_syncs.count
     with monkeypatch.context() as mp:
-      if not graph:
-        mp.setattr(graphs, "graphable", lambda tensors: False)
+      # hand23 and legs80 take the fused kernel; the graph path serves
+      # nv > 64 and is held here on these solves
+      mp.setattr(solver, "route",
+                 lambda *a: solver.STAGED if graph else solver.EAGER)
       out = solver._newton_solve(*args)
     torch.cuda.synchronize()
     return (out, [c.launches - b for c, b in zip(graphs.COUNTERS, before)],
@@ -436,8 +440,9 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
                                                     monkeypatch):
   """Three ``autoreset_step``s at B 4096 on the card, of hand23 pose and
   of legs80 walk on MyoLeg's knees, from one state, actions and seed,
-  once through the graph paths from empty caches (the forward's two graphs
-  and Newton's: warm-up, capture, replays) and once eagerly: every state's
+  once through the forward's graphs from empty caches (warm-up, capture,
+  replays) and once eagerly, Newton in the fused kernel both times: every
+  state's
   every tensor (each Data field, the contact set and overlay, obs, reward,
   done, info, aux) bit for bit, the envs that reset and those that did not
   (a quarter of the clocks at the horizon), and the same SPD launches

@@ -8,9 +8,9 @@ nothing. Under ``torch.profiler`` the outermost host ranges of one
 narrowphase group spans sit inside ``engine.contacts``, the outputs are
 bit-identical to an unprofiled step, the Newton counter holds what the
 Newton solves returned, and the block counter counts every block, none
-from a CUDA graph (the CPU runs the eager loop); the forward counter counts
-only passes on the card, so none here, and keeps nothing without a
-profiler. On the walk, whose reset
+from a CUDA graph (the CPU runs the eager loop); the forward counter and
+the fused-solve counter count only on the card, so nothing here, and keep
+nothing without a profiler. On the walk, whose reset
 solves its constraints too, the row counter counts each solve's rows
 holding force (the knees' equality rows among them) against the rows it
 carries, and the reset counter the envs that took their fresh reset
@@ -114,6 +114,7 @@ def traced(env_and_state):
   return {"plain": plain, "out": out, "events": events, "solves": solves,
           "work": spans.newton_work(), "blocks": spans.newton_graph_blocks(),
           "forwards": spans.forward_graph_passes(),
+          "fused": spans.newton_fused_solves(),
           "frame_skip": env.frame_skip}
 
 
@@ -195,6 +196,32 @@ def test_newton_graph_reader_reads_the_counter(monkeypatch):
   assert read(ctx) is None
   # a program without the counter (the parent of the graph path)
   monkeypatch.delattr(spans, "newton_graph_blocks")
+  assert read(ctx) is None
+
+
+def test_newton_fused_solves_counted_on_the_card_only(traced):
+  # the CPU's solves take the eager loop and are not counted
+  assert traced["fused"] == (0, 0)
+  with profile(activities=[ProfilerActivity.CPU]):
+    for fused in (True, False, True, True):
+      spans.newton_fused(fused)
+    assert spans.newton_fused_solves() == (3, 4)
+  assert spans.newton_fused_solves() == (3, 4)
+  # nothing kept without a profiler
+  spans.newton_fused(True)
+  assert spans.newton_fused_solves() == (3, 4) and spans._stale
+
+
+def test_newton_fused_reader_reads_the_counter(monkeypatch):
+  read = _reader("newton_fused_share").read
+  ctx = {"trace": {"idle_by_host_op": {}}}
+  monkeypatch.setattr(spans, "newton_fused_solves", lambda: (30, 40))
+  assert read(ctx) == pytest.approx(75.0)
+  assert read({}) is None
+  monkeypatch.setattr(spans, "newton_fused_solves", lambda: (0, 0))
+  assert read(ctx) is None
+  # a program without the counter (the parent of the fused kernel)
+  monkeypatch.delattr(spans, "newton_fused_solves")
   assert read(ctx) is None
 
 

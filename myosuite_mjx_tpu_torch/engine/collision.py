@@ -276,6 +276,20 @@ def collision_spec(m: DeviceModel) -> _CollisionSpec | None:
   return m.spec("collision", _build_collision_spec)
 
 
+def mesh_slots(m: DeviceModel) -> tuple[torch.Tensor, int]:
+  """(which geoms are meshes [ngeom] bool, on the model's device; the
+  narrowphase's slots of the pairs with a mesh). Pairs are ordered by
+  type, so a kept contact is a mesh slot's where its geom2 is a mesh."""
+  return m.spec("mesh_slots", _build_mesh_slots)
+
+
+def _build_mesh_slots(m: DeviceModel) -> tuple[torch.Tensor, int]:
+  h = m.host
+  mesh = np.asarray(h.geom_type) == GeomType.MESH
+  n = sum(_npoints(h, p) for p in candidate_pairs(h) if mesh[p.g2])
+  return torch.as_tensor(mesh, device=m.device), n
+
+
 def _hfield(m: DeviceModel, dataid: int) -> _HField:
   h = m.host
   adr, nrow, ncol = (int(h.hfield_adr[dataid]), int(h.hfield_nrow[dataid]),

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from myosuite_mjx_tpu_torch.engine import graphs
+from myosuite_mjx_tpu_torch.engine import collision, graphs
 from myosuite_mjx_tpu_torch.engine.data import Data
 from myosuite_mjx_tpu_torch.engine.model import DSBL_CONTACT, DeviceModel
 from myosuite_mjx_tpu_torch.ops import cuda_linalg, linalg
@@ -315,10 +315,18 @@ def solve_rows(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,
     return _solve(m, d, efc, contact_blocks, contact_info, full_data)
 
 
+def _contact_rows(force, contact_blocks, contact_info) -> torch.Tensor:
+  """The contact rows' forces [B, ncon, rows a contact] (a view: the
+  contact rows come last)."""
+  B, ncon = contact_info.dist.shape
+  nrows = contact_blocks["J"].shape[1]
+  return force[:, -nrows:].reshape(B, ncon, nrows // max(ncon, 1))
+
+
 def _solve(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,
            full_data: bool) -> Data:
   """The Newton solve on the rows ``efc``, then its forces scattered into
-  Data. The solve feeds the Newton and row-use counters
+  Data. The solve feeds the Newton, row-use and mesh-contact counters
   (``utils/spans.py``)."""
   J, aref, D, is_eq, _pos, meta = efc
   qacc, force, iterations = _newton_solve(m, d, J, aref, D, is_eq,
@@ -326,6 +334,12 @@ def _solve(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,
                                           int(m.opt.ls_iterations))
   spans.newton_solved(iterations)
   spans.efc_rows_used(force)
+  contacts = (contact_info is not None
+              and not (m.opt.disableflags & DSBL_CONTACT))
+  if contacts and spans.recording():
+    spans.mesh_contacts_used(_contact_rows(force, contact_blocks,
+                                           contact_info),
+                             contact_info.geom2, *collision.mesh_slots(m))
   out = d.replace(qfrc_constraint=_mv(J.transpose(-1, -2), force), qacc=qacc,
                   qacc_warmstart=qacc)
   if not full_data:
@@ -335,11 +349,9 @@ def _solve(m: DeviceModel, d: Data, efc, contact_blocks, contact_info,
     off = meta["jl_offset"]
     out = out.replace(efc_force_limit=meta["jl_sign"]
                       * force[:, off:off + nl])
-  if contact_info is not None and not (m.opt.disableflags & DSBL_CONTACT):
-    B, ncon = contact_info.dist.shape
-    nrows = contact_blocks["J"].shape[1]
-    rows_per = nrows // max(ncon, 1)
-    lam = force[:, -nrows:].reshape(B, ncon, rows_per)
+  if contacts:
+    lam = _contact_rows(force, contact_blocks, contact_info)
+    rows_per = lam.shape[-1]
     cforce = lam.sum(-1)
     # world-frame force on body2: pyramid rows jn +- mu jf recombine to
     # f_n = sum lam and f_ti = mu_i (lam_i+ - lam_i-)

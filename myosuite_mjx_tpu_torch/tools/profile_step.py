@@ -20,8 +20,10 @@ profiles one window of ``--steps`` control steps and prints:
   sit inside ``env.reset``'s row; then the device's busy ms and
   operations of the whole window;
 - the Newton solves' useful share (``spans.newton_work``), the share of
-  their constraint rows holding force (``spans.efc_row_use``) and the
-  share of the fresh resets kept (``spans.reset_use``);
+  their constraint rows holding force (``spans.efc_row_use``), the share
+  of the narrowphase's mesh slots holding force where the scene has a
+  mesh (``spans.mesh_contact_use``) and the share of the fresh resets
+  kept (``spans.reset_use``);
 - the kernels with the most device time.
 
 The device's idle share, and the idle time by span, are the benchmark's
@@ -144,6 +146,10 @@ def main(argv=None) -> None:
   if carried:
     print(f"constraint rows in force {100.0 * used / carried:.1f}% ({used} "
           f"of {carried} env-rows)")
+  used, computed = spans.mesh_contact_use()
+  if computed:
+    print(f"mesh slots in force {100.0 * used / computed:.1f}% ({used} of "
+          f"{computed} env-slots)")
   kept, computed = spans.reset_use()
   if computed:
     print(f"resets kept {100.0 * kept / computed:.2f}% ({kept} of "

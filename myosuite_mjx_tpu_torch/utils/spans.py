@@ -41,7 +41,11 @@ passes on the card (``engine/forward.py``). Two more counters follow the
 same rule: ``efc_rows_used`` keeps each solve's per-env count of rows
 holding a nonzero force [B] (one launch a solve), read by ``efc_row_use``;
 ``resets_kept`` keeps each ``autoreset_step``'s mask of the envs that took
-their fresh reset [B] (no launch), read by ``reset_use``.
+their fresh reset [B] (no launch), read by ``reset_use``. And
+``mesh_contacts_used`` keeps each solve's mask [B, ncon] of the kept
+contacts that are a mesh pair's and hold a nonzero normal force (one
+reduction launch a solve; nothing where the scene has no mesh), read by
+``mesh_contact_use``.
 """
 from __future__ import annotations
 
@@ -96,6 +100,9 @@ _forwards = [0, 0]
 # recording began
 _rows: list = []
 _resets: list = []
+# (mesh contacts in force [B, ncon] bool, the narrowphase's mesh slots) of
+# each solve since the latest recording began
+_mesh: list = []
 _stale = True     # no profiler recorded at the last solve
 
 
@@ -113,6 +120,7 @@ def _keeping() -> bool:
     _forwards[:] = [0, 0]
     _rows.clear()
     _resets.clear()
+    _mesh.clear()
     _stale = False
   return True
 
@@ -208,3 +216,22 @@ def reset_use() -> tuple[int, int]:
   the latest recording: every step computes one for each env."""
   return (sum(int(k.sum()) for k in _resets),
           sum(k.numel() for k in _resets))
+
+
+def mesh_contacts_used(lam: torch.Tensor, geom2: torch.Tensor,
+                       mesh: torch.Tensor, slots: int) -> None:
+  """Keep one solve's mask of the kept contacts [B, ncon] that are a mesh
+  pair's and hold a nonzero normal force, from the contact rows' forces
+  ``lam`` [B, ncon, rows a contact], the contacts' ``geom2`` and which
+  geoms are meshes ``mesh`` [ngeom], while a profiler records and the
+  narrowphase has mesh ``slots`` (one reduction launch)."""
+  if slots and _keeping():
+    _mesh.append(((lam.sum(-1) != 0) & mesh[geom2], slots))
+
+
+def mesh_contact_use() -> tuple[int, int]:
+  """(mesh slots holding a nonzero normal force, summed over envs and
+  solves; B x the mesh slots the narrowphase computes, summed over
+  solves) over the solves of the latest recording."""
+  return (sum(int(k.sum()) for k, _ in _mesh),
+          sum(k.shape[0] * slots for k, slots in _mesh))

@@ -22,7 +22,12 @@ and float64, on hand23 pose and on legs80 walk on MyoLeg's knees
 (equality and contact rows in force); so are three autoreset steps of
 each through the forward's graphs (Newton in the fused kernel,
 ``tests/test_torch_newton_kernel.py``, on both sides), and an env gives
-one ``DeviceModel`` for ``"cuda"`` and ``"cuda:0"``. Last,
+one ``DeviceModel`` for ``"cuda"`` and ``"cuda:0"``. MyoDM Lift tracking
+on track29 (a mesh cube under the fingers, on a table) runs three
+autoreset steps through the forward's graphs at B 64, the mesh groups in
+graph B, bit for bit against its eager path, and its Newton solves at
+[4096, 125, 35] float32 take the fused kernel within that kernel's
+tolerances of the eager loop. Last,
 the rest of the port on the card against the CPU: the reflex controller's
 update, the gym adapter, the CNN encoder, and the data-parallel learners
 at world size 1 on NCCL against the plain step.
@@ -449,10 +454,16 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
   counted. No returned tensor shares memory with a graph's buffers."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA card")
-  from myosuite_mjx_tpu_torch.engine import forward, graphs, solver
   make_env, _, _ = GRAPH_SCENES[scene]
-  batch = 4096
-  env = make_env(dtype)
+  _forward_graphs_against_eager(make_env(dtype), 4096, scene, monkeypatch)
+
+
+def _forward_graphs_against_eager(env, batch: int, scene: str, monkeypatch):
+  """Three ``autoreset_step``s of ``env`` through the forward's graphs and
+  eagerly, held bit for bit (``test_forward_graph_replay_matches_eager_on_
+  card``); returns the graphed states."""
+  from myosuite_mjx_tpu_torch.engine import forward, graphs, solver
+  dtype = env.dtype
   g = torch.Generator(device="cuda").manual_seed(0)
   actions = [torch.rand((batch, env.action_dim), generator=g, device="cuda",
                         dtype=dtype) * 2 - 1 for _ in range(3)]
@@ -511,6 +522,88 @@ def test_forward_graph_replay_matches_eager_on_card(dtype, scene,
         assert t.untyped_storage().data_ptr() not in buffers, k
   print(f"forward graph replay vs eager, {scene}, {dtype}, 3 autoreset "
         f"steps: largest difference {worst}, SPD launches {launches}")
+  return graphed
+
+
+def _track29_lift(dtype):
+  from myosuite_mjx_tpu_torch import envs
+  return envs.make("track29CubesmallLift-v0", dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_track29_forward_graphs_with_the_mesh_group_match_eager_on_card(
+    monkeypatch):
+  """MyoDM Lift tracking on track29 (nv 35, 125 rows: the fingers and the
+  table on a mesh cube, a position-driven base) at B 64, float32: three
+  autoreset steps through graphs A and B, B's capsule-mesh and plane-mesh
+  groups inside it, against the card's eager path, bit for bit as above.
+  The mesh pairs hold force."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  from myosuite_mjx_tpu_torch.engine import collision
+  env = _track29_lift(torch.float32)
+  spec = collision.collision_spec(env.device_model("cuda"))
+  assert {g.span for g in spec.groups} >= {"contacts.CAPSULE-MESH",
+                                           "contacts.PLANE-MESH"}
+  mesh, slots = collision.mesh_slots(env.device_model("cuda"))
+  assert slots == 10
+  graphed = _forward_graphs_against_eager(env, 64, "track29", monkeypatch)
+  d = graphed[-1].data
+  assert ((d.contact_force != 0) & mesh[d.contact.geom2]).any()
+
+
+@pytest.mark.gpu
+def test_fused_newton_kernel_on_track29_matches_the_eager_loop():
+  """The fused Newton kernel on the solves of two control steps of track29
+  Lift tracking at B 4096, float32 ([4096, 125, 35]: joint limits and
+  contact rows on the mesh cube, the resets' own solves), against the
+  eager loop with the helpers and tolerances of
+  ``tests/test_torch_newton_kernel.py``. Every episode starts from the
+  clip's one init pose with the cube resting on the table, and no finger
+  reaches it in the first control step, so in that step's solves every
+  env carries the same cube problem: the envs' median error and their
+  share of equal iteration counts are one problem's reading (the kernel
+  and the loop differ by one block there, within rounding of the same
+  cost). Those solves are held to the float64 eager loop, as the float32
+  loop is (``test_fused_kernel_float32_against_a_float64_eager_loop``'s
+  rule); the second step's, where the envs are apart, to the eager loop's
+  bounds as well."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+  from myosuite_mjx_tpu_torch.engine import solver
+  import test_torch_newton_kernel as nk
+  env = _track29_lift(torch.float32)
+  solves = nk._env_solves(lambda dtype: env, torch.float32)
+  # each control step: frame_skip substeps and the reset
+  per_step = env.frame_skip + 1
+  assert len(solves) == 2 * per_step
+  assert tuple(solves[0][2].shape) == (4096, 125, 35)
+  launches = cuda_linalg.newton_solve_cuda.launches
+  rows = 0
+  errors = {"kernel": {"qacc": [], "force": []},
+            "eager": {"qacc": [], "force": []}}
+  for k, args in enumerate(solves):
+    kernel = nk._run(args, solver.KERNEL)
+    eager = nk._run(args, solver.EAGER)
+    if k >= per_step:
+      nk._check(kernel, eager, torch.float32,
+                f"track29 solve {k} {tuple(args[2].shape)}")
+    ref = nk._run(nk._float64(args), solver.EAGER)
+    for side, out in (("kernel", kernel), ("eager", eager)):
+      for i, name in enumerate(("qacc", "force")):
+        errors[side][name].append(nk._env_error(out[i], ref[i]))
+    rows += int((eager[1][:, 29:] != 0).sum())
+  assert cuda_linalg.newton_solve_cuda.launches - launches == len(solves)
+  spread = {side: {name: nk._spread(np.concatenate(errs))
+                   for name, errs in v.items()}
+            for side, v in errors.items()}
+  print(f"track29 float32 against float64, {len(solves)} solves: {spread}")
+  for name in ("qacc", "force"):
+    for got, eager in zip(spread["kernel"][name], spread["eager"][name]):
+      assert got <= (nk.RATIO_TO_EAGER * eager
+                     + torch.finfo(torch.float32).eps), (name, spread)
+  # the contact rows (after the 29 joint limits) hold force
+  assert rows > 0
 
 
 @pytest.mark.gpu

@@ -14,7 +14,11 @@ nothing without a profiler. On the walk, whose reset
 solves its constraints too, the row counter counts each solve's rows
 holding force (the knees' equality rows among them) against the rows it
 carries, and the reset counter the envs that took their fresh reset
-against the batch.
+against the batch. On the hulls scene (B = 4, twenty steps) the mesh
+counter counts the kept mesh slots in force that the steps' contact forces
+show, against B x the narrowphase's 7 mesh slots a solve; without a
+profiler the solve calls it not at all, and on hand23, which has no mesh,
+it keeps nothing.
 """
 from __future__ import annotations
 
@@ -367,4 +371,74 @@ def test_row_and_reset_readers_read_their_counter(name, counter, counts,
   assert read(ctx) is None
   # a program without the counter (the parent of these counters)
   monkeypatch.delattr(spans, counter)
+  assert read(ctx) is None
+
+
+HULLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "myosuite_mjx_tpu_torch", "assets", "hulls.npz")
+
+
+@pytest.fixture(scope="module")
+def hulls_traced():
+  """Twenty profiled ``Physics.step``s of the hulls scene (a mesh slab on
+  a plane, a sphere, capsule and ellipsoid falling onto it) at B = 4, from
+  random velocities; each step's contact set and contact forces."""
+  from myosuite_mjx_tpu_torch.engine import api, collision
+  phys = api.load(HULLS, torch.float64, "cpu")
+  d = phys.make_data(B)
+  g = torch.Generator().manual_seed(0)
+  d = d.replace(qvel=0.3 * torch.randn(d.qvel.shape, generator=g,
+                                       dtype=torch.float64))
+  start, steps = d, []
+  with profile(activities=[ProfilerActivity.CPU]):
+    for _ in range(20):
+      d = phys.step(d)
+      steps.append(d)
+  return {"phys": phys, "start": start, "steps": steps,
+          "mesh": collision.mesh_slots(phys.device_model),
+          "use": spans.mesh_contact_use()}
+
+
+def test_mesh_counter_counts_the_mesh_slots_in_force(hulls_traced):
+  mesh, slots = hulls_traced["mesh"]
+  steps = hulls_traced["steps"]
+  # the slab's four plane-mesh slots and one each of sphere, capsule and
+  # ellipsoid against it, of the scene's eleven
+  assert slots == 7 and int(mesh.sum()) == 1
+  direct = sum(int(((d.contact_force != 0) & mesh[d.contact.geom2]).sum())
+               for d in steps)
+  assert direct > 0
+  assert hulls_traced["use"] == (direct, len(steps) * B * slots)
+
+
+def test_mesh_counter_keeps_nothing_and_runs_nothing_without_a_profiler(
+    hulls_traced, monkeypatch):
+  calls = []
+  monkeypatch.setattr(spans, "mesh_contacts_used",
+                      lambda *a: calls.append(a))
+  assert not spans.recording()
+  kept = list(spans._mesh)
+  hulls_traced["phys"].step(hulls_traced["start"])
+  # the solve tests the flag and calls nothing: no op, so no launch
+  assert calls == [] and spans._mesh == kept
+
+
+def test_mesh_counter_keeps_nothing_without_a_mesh(env_and_state):
+  env, st, action = env_and_state
+  with profile(activities=[ProfilerActivity.CPU]):
+    env.autoreset_step(st, action)
+    assert spans.mesh_contact_use() == (0, 0)
+  assert spans.efc_row_use()[1] > 0
+
+
+def test_mesh_reader_reads_its_counter(monkeypatch):
+  read = _reader("mesh_contact_use").read
+  ctx = {"trace": {"idle_by_host_op": {}}}
+  monkeypatch.setattr(spans, "mesh_contact_use", lambda: (41, 4096 * 10))
+  assert read(ctx) == pytest.approx(100.0 * 41 / 40960)
+  assert read({}) is None
+  monkeypatch.setattr(spans, "mesh_contact_use", lambda: (0, 0))
+  assert read(ctx) is None
+  # a program without the counter (the parent of this counter)
+  monkeypatch.delattr(spans, "mesh_contact_use")
   assert read(ctx) is None

@@ -15,6 +15,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``inplace`` in both types); fails if one is missing or spills; and the
    Newton kernel (csrc/newton_solve.cu), printing registers and spills of
    its four instances (float32 and float64 at ``NEWTON_PADDED_SIZES``);
+   and the capsule-hull kernel (csrc/capsule_hull.cu), printing registers
+   and spills of its two instances (float32 and float64);
 3. kernel check: the register kernel against its plain PyTorch version and
    against
    float64 ``torch.linalg.solve`` on random SPD batches (every padded size
@@ -47,12 +49,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ([4096, 119, 23]) and legs80 walk on MyoLeg's knees ([4096, 138, 34]),
    float32, at ``NEWTON_BOUNDS``; each scene's last solve timed (CUDA
    events) through the kernel and the eager loop, beside the bound of
-   reading its inputs and writing its outputs once;
+   reading its inputs and writing its outputs once. Last, the capsule-hull
+   kernel against the plain ``_capsule_hull`` on the card at the lift's
+   capsule-mesh group ([B_MAIN, 6] capsules against track29's cube, 12
+   faces), on random poses about the cube, in float32 and float64, bit for
+   bit, and timed (CUDA events over 50 launches) beside its bound and the
+   plain path's time;
 4. main path: ``PoseEnv`` on the synthetic hand23 scene with the
    myoHandPoseFixed-v0 task, ``BatchedEnv`` of 4096 envs, ``init`` and 105
    control steps, so every env crosses horizon 100 once; checks finite
-   outputs, the autoreset, the SPD and Newton kernels' launch counts and
-   the precision pin;
+   outputs, the autoreset, the SPD and Newton kernels' launch counts, that
+   the capsule-hull kernel never launches (hand23 has no mesh) and the
+   precision pin;
 5. card against CPU: 5 control steps of the same 16 envs on the card
    (float32, kernel) and on the CPU (float64, plain version);
 6. train: ``NPG.train`` on hand23 at the zoo run's width (512 trajectories
@@ -197,11 +205,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    episode clock crossing
    its horizon, printing physics-steps/s, the ratio to phase 4, ms per
    control step, SPD launches per control step, active contacts per env
-   and step, the contacts the cull dropped, the OSL states over the
-   env-steps and the envs whose machine left early stance, and the
-   tracking tasks' lift-bonus count, failing on a non-finite output, an
-   OSL machine that never leaves early stance, or an env that did not
-   autoreset.
+   and step, the contacts the cull dropped, the capsule-hull launches
+   over the control steps, the OSL states over the env-steps and the envs
+   whose machine left early stance, and the tracking tasks' lift-bonus
+   count, failing on a non-finite output, an OSL machine that never leaves
+   early stance, an env that did not autoreset, or capsule-hull launches
+   other than one a capsule-mesh group a forward (frame_skip substeps and
+   the constrained reset: 11 a control step on the Lift, none on the OSL
+   ids).
 
 17. the general kernel's paths: (a) hand23's PoseFixed env in float64 on
    the card, 16 envs for 5 control steps, against the CPU port in float64
@@ -246,14 +257,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 Every (dtype, B, n) at which phases 4-18 launch an SPD kernel must be
 among those phase 3 checked, and the Newton kernel must launch in phase 4
-and in a later phase (its launches in phases 4-18 are counted). Phases
+and in a later phase (its launches in phases 4-18 are counted), and the
+capsule-hull kernel in a phase after 4. Phases
 9's and 13-18's CPU runs are computed in one worker process
 (``cpu_references_conditions``, then ``cpu_references``), started after
 phase 2 and joined at phases 9 and 13, while the card runs the phases
 before them.
 
-The line before the last is the kernels' JSON record (all three); the
-last line is
+The line before the last is the kernels' JSON record (all four; each
+kernel's ``launches`` is those of its own path: phase 4's for the SPD and
+Newton kernels, 16c's Lift for the capsule-hull kernel); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import concurrent.futures
@@ -695,6 +708,26 @@ def _ptxas_newton(log: str) -> dict:
   return out
 
 
+def _ptxas_capsule(log: str) -> dict:
+  """Registers and spill bytes of each instance of the capsule-hull kernel,
+  by type: ``float32``."""
+  types = {"f": "float32", "d": "float64"}
+  out, kind = {}, None
+  for ln in log.splitlines():
+    m = re.search(r"capsule_hull_kernelI([fd])E", ln)
+    if "Compiling entry function" in ln:
+      kind = types[m.group(1)] if m else None
+      if kind:
+        out[kind] = {}
+    elif kind is not None:
+      if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        ln):
+        out[kind]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+      if m := re.search(r"Used (\d+) registers", ln):
+        out[kind]["registers"] = int(m.group(1))
+  return out
+
+
 def _ptxas_general(log: str) -> dict:
   """Registers and spill bytes of each instance of the general kernel, by
   route and padded size or type: ``reg NP=24 float64 (G 8, SB 8)``,
@@ -729,12 +762,14 @@ def phase_build():
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
   # one nvcc per source, started together
   sources = (cuda_linalg.SOURCE, cuda_linalg.GENERAL_SOURCE,
-             cuda_linalg.NEWTON_SOURCE)
+             cuda_linalg.NEWTON_SOURCE, cuda_linalg.CAPSULE_SOURCE)
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
     builds = [ex.submit(cuda_linalg.build, source=src) for src in sources]
     ((path, seconds, log), (gpath, gseconds, glog),
-     (npath, nseconds, nlog)) = [b.result() for b in builds]
-  for p, sec in ((path, seconds), (gpath, gseconds), (npath, nseconds)):
+     (npath, nseconds, nlog), (cpath, cseconds, clog)) = [
+         b.result() for b in builds]
+  for p, sec in ((path, seconds), (gpath, gseconds), (npath, nseconds),
+                 (cpath, cseconds)):
     _say(f"build: {sec:.2f} s -> {os.path.relpath(p, ROOT)}"
          f"{'' if sec else ' (already built)'}")
   newton = _ptxas_newton(nlog)
@@ -746,6 +781,14 @@ def phase_build():
   for kind, rep in sorted(newton.items()):
     _say(f"build: Newton kernel, {kind}: {rep.get('registers')} registers, "
          f"{rep.get('spill_bytes')} bytes spilled")
+  capsule = _ptxas_capsule(clog)
+  expected = ["float32", "float64"]
+  if sorted(capsule) != expected:
+    raise AssertionError(f"ptxas reported capsule-hull kernel instances "
+                         f"{sorted(capsule)}, expected {expected}")
+  for kind, rep in sorted(capsule.items()):
+    _say(f"build: capsule-hull kernel, {kind}: {rep.get('registers')} "
+         f"registers, {rep.get('spill_bytes')} bytes spilled")
   general = _ptxas_general(glog)
   expected = ([f"reg NP={np_} float64" for np_ in GENERAL_PADDED_SIZES]
               + [f"{r} {t}" for r in ("tile", "inplace")
@@ -771,7 +814,8 @@ def phase_build():
          f"registers, {rep.get('spill_bytes')} bytes spilled")
     if rep.get("spill_bytes") != 0:
       raise AssertionError(f"NP={size} spills registers (or no report)")
-  return {"spd_solve_general": general, "newton_solve": newton}
+  return {"spd_solve_general": general, "newton_solve": newton,
+          "capsule_hull": capsule}
 
 
 def _time_ms(fn, reps: int = 50) -> float:
@@ -1328,14 +1372,95 @@ def phase_newton_check() -> dict:
   return out
 
 
+# phase 3, the capsule-hull kernel at the lift's capsule-mesh group
+CAPSULE_TASK = "track29CubesmallLift-v0"
+# its operations a face evaluation, for the bound: the differences to the
+# three vertices (9), six dot products (30), the region's three
+# determinants (9), the edges' numerators (2), the squared distance (8),
+# the plane distance (6) and an edge's point (8)
+CAPSULE_OPS_PER_FACE = 72
+
+
+def _capsule_bound_ms(B: int, G: int, F: int, dtype) -> tuple:
+  """Least time for one group: 20 numbers read and 7 written an
+  (env, pair) over HBM rate, against 33 hull queries (2 probes a trip of
+  the 32, then the final point) of F faces at CAPSULE_OPS_PER_FACE over
+  the peak of the type."""
+  size = torch.empty((), dtype=dtype).element_size()
+  t_bytes = B * G * 27 * size / HBM_BYTES_PER_S
+  peak = FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
+  t_ops = B * G * (2 * 32 + 1) * F * CAPSULE_OPS_PER_FACE / peak
+  return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+
+def phase_capsule_check() -> dict:
+  """Phase 3, the capsule-hull kernel: against the plain ``_capsule_hull``
+  on the card at the lift's capsule-mesh group ([B_MAIN, 6] against the
+  cube's 12 faces), on random poses about the cube (apart, touching,
+  inside), float32 and float64, bit for bit; each timed (CUDA events, 50
+  launches; the plain path 3) beside its bound."""
+  from myosuite_mjx_tpu_torch import envs
+  from myosuite_mjx_tpu_torch.engine import collision
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  out = {}
+  n0 = cuda_linalg.capsule_hull_cuda.launches
+  for dtype in (torch.float32, torch.float64):
+    m = envs.make(CAPSULE_TASK, dtype=dtype).device_model(DEVICE)
+    (g,) = [g for g in collision.collision_spec(m).groups
+            if g.hull is not None and g.types[0] == T.CAPSULE]
+    G, F = g.g1.shape[0], g.hull.tris.shape[0]
+    rng = np.random.default_rng(0)
+    n = B_MAIN * G
+    p2 = rng.uniform(-0.05, 0.05, (n, 3))
+    as_t = lambda a, *shape: torch.as_tensor(
+        a, dtype=dtype, device=DEVICE).reshape(B_MAIN, G, *shape)
+    args = (as_t(p2 + rng.uniform(-0.06, 0.06, (n, 3)), 3),
+            as_t(_rotations(rng, n), 3, 3), g.size1.expand(B_MAIN, -1, -1),
+            as_t(p2, 3), as_t(_rotations(rng, n), 3, 3))
+    kernel_fn = lambda: cuda_linalg.capsule_hull_cuda(*args, g.hull.tris,
+                                                      g.hull.eqs)
+    plain_fn = lambda: collision._one(collision._capsule_hull)(
+        args[0], args[1], args[2][..., 0], args[2][..., 1], args[3],
+        args[4], g.hull.tris, g.hull.eqs)
+    kernel, plain = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    differ = {k: float((a != b).reshape(B_MAIN, G, -1).any(-1).double()
+                       .mean())
+              for k, a, b in zip(("dist", "pos", "n"), kernel, plain)}
+    gap = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(kernel, plain))
+    same = not any(differ.values())
+    ms = _time_ms(kernel_fn)
+    plain_ms = _time_ms(plain_fn, reps=3)
+    bound_ms, bound_by = _capsule_bound_ms(B_MAIN, G, F, dtype)
+    name = str(dtype)[6:]
+    _say(f"capsule_hull [{B_MAIN}, {G}] F {F} {name}, kernel against the "
+         f"plain path: lanes that differ {differ}, largest gap {gap:.3e} "
+         f"{'ok' if same else 'FAIL'}; CUDA events: kernel {ms * 1e3:.1f} "
+         f"us a launch, plain {plain_ms:.3f} ms; bound {bound_ms * 1e3:.2f} "
+         f"us by {bound_by}, kernel at {bound_ms / ms:.3f} of it")
+    if not same:
+      raise AssertionError(f"the capsule-hull kernel disagrees with the "
+                           f"plain path in {name}")
+    out[name] = {"shape": [B_MAIN, G, F], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "lanes_differ": differ}
+  out["check_launches"] = cuda_linalg.capsule_hull_cuda.launches - n0
+  return out
+
+
 def phase_kernels() -> dict:
   """Phase 3: the register kernel, the general kernel, then the two on
-  float32 systems with 33 <= n <= 64, then the Newton kernel."""
+  float32 systems with 33 <= n <= 64, then the Newton kernel, then the
+  capsule-hull kernel."""
   out = {}
   for name, fn in (("spd_solve", phase_kernel_check),
                    ("spd_solve_general", phase_general_check),
                    ("f32_compare", phase_f32_compare),
-                   ("newton_solve", phase_newton_check)):
+                   ("newton_solve", phase_newton_check),
+                   ("capsule_hull", phase_capsule_check)):
     t0 = time.perf_counter()
     out[name] = fn()
     _say(f"phase 3, {name}: {time.perf_counter() - t0:.1f} s")
@@ -1355,6 +1480,7 @@ def phase_main_path() -> dict:
 
   cuda_linalg.spd_solve_cuda.launches = 0
   cuda_linalg.newton_solve_cuda.launches = 0
+  capsule0 = cuda_linalg.capsule_hull_cuda.launches
   solver.newton_host_syncs.count = 0
   benv = base.BatchedEnv(env, B_MAIN, DEVICE, seed=0)
   state = benv.init()
@@ -1375,6 +1501,7 @@ def phase_main_path() -> dict:
   seconds = time.perf_counter() - t0
   launches = cuda_linalg.spd_solve_cuda.launches
   newton_launches = cuda_linalg.newton_solve_cuda.launches
+  capsule_launches = cuda_linalg.capsule_hull_cuda.launches - capsule0
   syncs = solver.newton_host_syncs.count - syncs0
 
   for name, x in (("obs", state.obs), ("reward", state.reward),
@@ -1388,6 +1515,10 @@ def phase_main_path() -> dict:
     raise AssertionError("the main path never launched the kernel")
   if newton_launches <= 0:
     raise AssertionError("the main path never launched the Newton kernel")
+  if capsule_launches != 0:
+    raise AssertionError(f"hand23 has no capsule-mesh pair, yet the main "
+                         f"path launched the capsule-hull kernel "
+                         f"{capsule_launches} times")
   if not base.precision_pinned():
     raise AssertionError("float32 matmul precision lost its pin")
   timed = STEPS - WARMUP
@@ -1397,11 +1528,13 @@ def phase_main_path() -> dict:
        f"ne_active mean {float(state.data.ne_active.float().mean()):.2f}, "
        f"reward mean {float(state.reward.mean()):.4f}")
   _say(f"main path: spd_solve launches {launches}, newton_solve launches "
-       f"{newton_launches}; Newton host syncs "
+       f"{newton_launches}, capsule_hull launches {capsule_launches}; "
+       f"Newton host syncs "
        f"{syncs / timed:.2f} per control step; {timed} timed steps in "
        f"{seconds:.3f} s: {ctrl_rate * env.frame_skip:.1f} physics-steps/s, "
        f"{ctrl_rate:.1f} control-steps/s")
   return {"launches": launches, "newton_launches": newton_launches,
+          "capsule_launches": capsule_launches,
           "physics_steps_per_s": ctrl_rate * env.frame_skip}
 
 
@@ -2591,14 +2724,16 @@ def _drive_b_main(env, steps: int, on_step=None, on_init=None):
   steps after WARMUP timed. ``on_init(st)`` sees the first state and
   ``on_step(i, prev, st, ended)`` each step, for a task's own counts.
   Returns the last state and the run: seconds, timed steps,
-  physics-steps/s, SPD launches, contacts the cull dropped and the envs
-  that restarted."""
+  physics-steps/s, SPD launches (``init`` included), capsule-hull launches
+  over the control steps, contacts the cull dropped and the envs that
+  restarted."""
   from myosuite_mjx_tpu_torch.envs.base import BatchedEnv
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
   benv = BatchedEnv(env, B_MAIN, DEVICE, seed=0)
   torch.cuda.synchronize()
   cuda_linalg.spd_solve_cuda.launches = 0
   st = benv.init()
+  capsule0 = cuda_linalg.capsule_hull_cuda.launches
   if on_init is not None:
     on_init(st)
   g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -2626,6 +2761,8 @@ def _drive_b_main(env, steps: int, on_step=None, on_init=None):
   return st, {"seconds": seconds, "timed": timed,
               "rate": timed * B_MAIN * env.frame_skip / seconds,
               "launches": cuda_linalg.spd_solve_cuda.launches,
+              "capsule_launches": (cuda_linalg.capsule_hull_cuda.launches
+                                   - capsule0),
               "dropped": int(dropped), "restarted": int(restarted.sum())}
 
 
@@ -3360,7 +3497,7 @@ def phase_osl_track_tasks(phase4_rate: float, refs: dict | None = None
   ``cpu_references()`` (computed here without it)."""
   for task_id in OSL_TRACK_TASKS:
     _hold_b16(task_id, refs, "osl-track")
-  out = {}
+  out, capsule = {}, {}
   for task_id in OSL_TRACK_RATE_TASKS:
     env = _task_env(task_id)
     m = env.model
@@ -3388,6 +3525,10 @@ def phase_osl_track_tasks(phase4_rate: float, refs: dict | None = None
     seconds, timed, launches = run["seconds"], run["timed"], run["launches"]
     rate = run["rate"]
     env_steps = OSL_TRACK_STEPS * B_MAIN
+    # one launch a capsule-mesh group a forward: frame_skip substeps and
+    # the autoreset's constrained reset each control step
+    groups = _capsule_groups(env)
+    forwards = (env.frame_skip + 1) * OSL_TRACK_STEPS
     extra = (f"; OSL states over env-steps {states.tolist()}, envs that "
              f"left early stance {int(left0.sum())}" if osl_task else
              f"; lift bonus in {int(bonus)} env-steps (lift height "
@@ -3401,15 +3542,32 @@ def phase_osl_track_tasks(phase4_rate: float, refs: dict | None = None
          f"({launches / OSL_TRACK_STEPS:.1f} per control step); active "
          f"contacts per env and step {float(contacts) / env_steps:.3f}; "
          f"dropped {run['dropped']} ({run['dropped'] / env_steps:.4f} per "
-         f"env and step); autoreset {run['restarted']} of {B_MAIN} envs"
-         f"{extra}")
+         f"env and step); autoreset {run['restarted']} of {B_MAIN} envs; "
+         f"capsule_hull launches {run['capsule_launches']} ({groups} "
+         f"capsule-mesh groups x {forwards} forwards){extra}")
     _b_main_checks(task_id, env, st, run)
+    if run["capsule_launches"] != groups * forwards or (
+        task_id == CAPSULE_TASK and not groups):
+      raise AssertionError(f"{task_id}: {run['capsule_launches']} "
+                           f"capsule-hull launches, expected {groups} "
+                           f"groups x {forwards} forwards")
+    capsule[f"phase16_{task_id}_capsule_launches"] = run["capsule_launches"]
     if osl_task and not bool(left0.any()):
       raise AssertionError(f"{task_id}: the OSL machine never left early "
                            f"stance")
     out[f"phase16_{task_id}_launches"] = launches
   out["launches"] = sum(out.values())
+  out["capsule"] = capsule
   return out
+
+
+def _capsule_groups(env) -> int:
+  """The capsule-mesh type groups of ``env``'s scene."""
+  from myosuite_mjx_tpu_torch.engine import collision
+  from myosuite_mjx_tpu_torch.engine.model import GeomType as T
+  spec = collision.collision_spec(env.device_model(DEVICE))
+  return sum(g.hull is not None and g.types[0] == T.CAPSULE
+             for g in spec.groups)
 
 
 def phase_osl_track(phase4_rate: float, cpu_refs=None) -> dict:
@@ -4054,6 +4212,7 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
                  t_start: float) -> int:
   from myosuite_mjx_tpu_torch.ops import cuda_linalg
   kernels = _timed_phase(3, phase_kernels)
+  capsule0 = cuda_linalg.capsule_hull_cuda.launches
   shapes: set = set()
   cuda_linalg.spd_solve_general_cuda.launches = 0
   with _launch_shapes(shapes):
@@ -4075,6 +4234,7 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
                             main_path["physics_steps_per_s"], cpu_refs)
     osl_track = _timed_phase(16, phase_osl_track,
                              main_path["physics_steps_per_s"], cpu_refs)
+    capsule_paths = osl_track.pop("capsule")
     general_4_16 = cuda_linalg.spd_solve_general_cuda.launches
     general_path = _timed_phase(17, phase_general_paths, cpu_refs)
     rest = _timed_phase(18, phase_rest_of_port, cpu_refs)
@@ -4083,6 +4243,10 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
   _say(f"newton_solve launches in phases 4-18: {newton_4_18}")
   if newton_4_18 <= main_path["newton_launches"]:
     raise AssertionError("no phase after 4 launched the Newton kernel")
+  capsule_4_18 = cuda_linalg.capsule_hull_cuda.launches - capsule0
+  _say(f"capsule_hull launches in phases 4-18: {capsule_4_18}")
+  if capsule_4_18 <= 0:
+    raise AssertionError("no mesh phase launched the capsule-hull kernel")
   unchecked = shapes - _checked_shapes()
   _say(f"spd_solve (dtype, B, n) launched in phases 4-18: {sorted(shapes)}; "
        f"not held against the plain version in phase 3: "
@@ -4118,7 +4282,15 @@ def _main_phases(smi: str, instances: dict, cond_refs, cpu_refs,
       "replaces": "myosuite_mjx_tpu/engine/solver.py:42",
       "launches": main_path["newton_launches"],
       "phases4_18_launches": newton_4_18, **kernels["newton_solve"],
-      "instances": instances["newton_solve"]}]}))
+      "instances": instances["newton_solve"]}, {
+      "name": "capsule_hull", "route": "cuda",
+      "source": "myosuite_mjx_tpu_torch/csrc/capsule_hull.cu",
+      "replaces": "no Pallas kernel: the plain path "
+                  "myosuite_mjx_tpu_torch/engine/collision.py _capsule_hull",
+      "launches": capsule_paths[f"phase16_{CAPSULE_TASK}_capsule_launches"],
+      "phase4_launches": main_path["capsule_launches"], **capsule_paths,
+      "phases4_18_launches": capsule_4_18, **kernels["capsule_hull"],
+      "instances": instances["capsule_hull"]}]}))
   _say(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -14,7 +14,9 @@ three probe spheres, against the bilinear surface; per-env heights from
 ``Data.overlay["hfield_data"]``), and the mesh pairs: a plane, sphere,
 capsule or ellipsoid against a mesh's convex hull (its triangles and face
 equations, precomputed on the host), grouped by mesh. Every pair type the
-reference supports is ported; no pair is ever skipped.
+reference supports is ported; no pair is ever skipped. On the card a
+capsule-mesh group runs as one hand-written kernel
+(``csrc/capsule_hull.cu``), the plain ``_capsule_hull`` its reference.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from myosuite_mjx_tpu_torch.engine import smooth
 from myosuite_mjx_tpu_torch.engine.data import Contact, Data
 from myosuite_mjx_tpu_torch.engine.model import DeviceModel, GeomType, Model
+from myosuite_mjx_tpu_torch.ops import cuda_linalg
 from myosuite_mjx_tpu_torch.ops.consts import const
 from myosuite_mjx_tpu_torch.ops.vec import (
     cross as _cross, dot as _dot, norm as _norm)
@@ -1159,6 +1162,32 @@ def _plane_hull(ppos, pmat, gpos, gmat, verts):
   return dist, w - 0.5 * dist[..., None] * n[..., None, :], n[..., None, :]
 
 
+def capsule_hull_on_kernel(tensors) -> bool:
+  """Whether a capsule-mesh group on ``tensors`` runs in the capsule-hull
+  kernel (``cuda_linalg.capsule_hull_cuda``): on the card, with no input
+  requiring grad. The CPU and grad run the plain ``_capsule_hull``, the
+  kernel's reference."""
+  return tensors[0].is_cuda and not any(t.requires_grad for t in tensors)
+
+
+def _capsule_mesh(hull: _Hull):
+  """The capsule-mesh narrowphase against ``hull``, routed by
+  ``capsule_hull_on_kernel``; each call on the card feeds the span
+  counter ``capsule_hull_fused``."""
+  plain = _one(lambda p1, m1, s1, p2, m2, s2: _capsule_hull(
+      p1, m1, s1[..., 0], s1[..., 1], p2, m2, hull.tris, hull.eqs))
+
+  def fn(p1, m1, s1, p2, m2, s2):
+    inputs = (p1, m1, s1, p2, m2, hull.tris, hull.eqs)
+    fused = capsule_hull_on_kernel(inputs)
+    if p1.is_cuda:
+      spans.capsule_hull_fused(fused)
+    if fused:
+      return cuda_linalg.capsule_hull_cuda(*inputs)
+    return plain(p1, m1, s1, p2, m2, s2)
+  return fn
+
+
 def _mesh_fn(t1: int, hull: _Hull):
   """The narrowphase of geom type ``t1`` against ``hull`` (geom2)."""
   T = GeomType
@@ -1170,8 +1199,7 @@ def _mesh_fn(t1: int, hull: _Hull):
     return _one(lambda p1, m1, s1, p2, m2, s2: _sphere_hull(
         p1, s1[..., 0], p2, m2, tris, eqs))
   if t1 == T.CAPSULE:
-    return _one(lambda p1, m1, s1, p2, m2, s2: _capsule_hull(
-        p1, m1, s1[..., 0], s1[..., 1], p2, m2, tris, eqs))
+    return _capsule_mesh(hull)
   if t1 == T.ELLIPSOID:
     return _one(lambda p1, m1, s1, p2, m2, s2: _ellipsoid_hull(
         p1, m1, s1, p2, m2, tris, eqs))

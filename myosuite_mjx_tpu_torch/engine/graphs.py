@@ -8,8 +8,8 @@ and graph B (contacts and ``make_efc``), the solve's warm-start prologue
 and one block. This module owns what both do with those parts:
 
 - ``graphable``: whether a call may replay graphs at all;
-- ``Graph``: one part captured, with the SPD kernels' launch counters
-  carried across replays;
+- ``Graph``: one part captured, with the kernels' launch counters and the
+  span counters' counts carried across replays;
 - ``Parts``: the lifecycle of a key's parts. The first run of a part goes
   eagerly on the key's side stream (the warm-up), the next captures it,
   and every later one replays it. Part k > 0 is captured only once part 0
@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from myosuite_mjx_tpu_torch.ops import cuda_linalg
+from myosuite_mjx_tpu_torch.utils import spans
 
 
 def graphable(tensors) -> bool:
@@ -39,15 +40,18 @@ def graphable(tensors) -> bool:
           and not torch.cuda.is_current_stream_capturing())
 
 
-# the SPD kernels' launch counters (Python-side: a replay runs no Python)
-COUNTERS = (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda)
+# the launch counters of the kernels a graph's code can launch, and the
+# span counters' counts it can feed (Python-side: a replay runs no Python)
+COUNTERS = (cuda_linalg.spd_solve_cuda, cuda_linalg.spd_solve_general_cuda,
+            cuda_linalg.capsule_hull_cuda, spans.capsule_fused,
+            spans.capsule_calls)
 
 
 class Graph:
   """A CUDA graph of ``fn``, captured on ``stream`` into ``pool`` (another
   graph's ``pool()``, or a private one); calling it replays the graph and
-  adds the SPD launches it holds to their counters (the capture, which
-  launches nothing, takes its count back)."""
+  adds the kernel launches and span counts it holds to their counters (the
+  capture, which launches nothing, takes its count back)."""
 
   def __init__(self, fn, stream, pool=None):
     before = [c.launches for c in COUNTERS]

@@ -1,19 +1,21 @@
 """CUDA builds and wrappers for the port's kernels.
 
-Three kernels, each its own library. Two solve batched SPD systems: the
+Four kernels, each its own library. Two solve batched SPD systems: the
 register kernel (csrc/spd_solve.cu) takes float32 with 1 <= n <= 64, the
 main path's solves; the general kernel (csrc/spd_solve_general.cu) takes
 every other float32 or float64 solve (the reference's unrolled
 ``chol_factor`` route). ``spd_solve_cuda`` picks one. The third
 (csrc/newton_solve.cu, ``newton_solve_cuda``) runs the constraint solve's
-whole Newton loop, one env per warp, float32 or float64 with nv <= 64.
+whole Newton loop, one env per warp, float32 or float64 with nv <= 64. The
+fourth (csrc/capsule_hull.cu, ``capsule_hull_cuda``) runs a capsule-mesh
+narrowphase group, one (env, pair) per warp, float32 or float64.
 
 Each kernel is compiled from the package's source at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
-plain C interface, loaded through ``ctypes``. The libraries go to
-``build/torch_kernels/`` at the repo root (git-ignored) and are named by the
-source's content hash, so an edited ``.cu`` is rebuilt. Nothing here runs
-when the module is imported.
+``nvcc -gencode arch=compute_90a,code=sm_90a`` (and the source's own
+``FLAGS``) into a shared library with a plain C interface, loaded through
+``ctypes``. The libraries go to ``build/torch_kernels/`` at the repo root
+(git-ignored) and are named by the hash of the source and its flags, so an
+edited ``.cu`` is rebuilt. Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -31,9 +33,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "spd_solve.cu")
 GENERAL_SOURCE = os.path.join(_PKG_DIR, "csrc", "spd_solve_general.cu")
 NEWTON_SOURCE = os.path.join(_PKG_DIR, "csrc", "newton_solve.cu")
+CAPSULE_SOURCE = os.path.join(_PKG_DIR, "csrc", "capsule_hull.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 MAX_N = 64
 NEWTON_MAX_NV = 64
+
+# nvcc flags of a source beside the common ones: the capsule kernel rounds
+# every product and sum on its own, as the plain path's elementwise ops do
+FLAGS = {CAPSULE_SOURCE: ("-fmad=false",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -48,7 +55,8 @@ def _nvcc() -> str:
 
 def library_path(source: str = SOURCE) -> str:
   with open(source, "rb") as f:
-    digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    digest = hashlib.sha256(
+        f.read() + " ".join(FLAGS.get(source, ())).encode()).hexdigest()[:16]
   stem = os.path.splitext(os.path.basename(source))[0]
   return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
@@ -74,7 +82,7 @@ def build(verbose: bool = False,
   # chip_smoke.py's phase 2 on an 8-core H100 host)
   cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-         "--split-compile=0", "-o", tmp, source]
+         "--split-compile=0", *FLAGS.get(source, ()), "-o", tmp, source]
   t0 = time.perf_counter()
   proc = subprocess.run(cmd, capture_output=True, text=True)
   seconds = time.perf_counter() - t0
@@ -91,6 +99,8 @@ def build(verbose: bool = False,
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _NEWTON_ARGS = [_P] * 7 + [_I] + [_P] * 4 + [_I] * 5 + [_D, _D, _P]
+_CAPSULE_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 3 + [_I] * 2 + [
+    _P]
 # C functions of each library and their argument types
 _SIGNATURES = {
     SOURCE: {"spd_solve_f32": [_P, _P, _P, _P, _I, _I, _P]},
@@ -100,6 +110,8 @@ _SIGNATURES = {
     NEWTON_SOURCE: {"newton_solve_f32": _NEWTON_ARGS,
                     "newton_solve_f64": _NEWTON_ARGS,
                     "newton_solve_needs_scratch": [_I, _I, _I]},
+    CAPSULE_SOURCE: {"capsule_hull_f32": _CAPSULE_ARGS,
+                     "capsule_hull_f64": _CAPSULE_ARGS},
 }
 
 
@@ -277,3 +289,73 @@ def newton_solve_cuda(qM: torch.Tensor, x0: torch.Tensor, ws: torch.Tensor,
 
 
 newton_solve_cuda.launches = 0
+
+
+def capsule_hull_cuda(p1: torch.Tensor, m1: torch.Tensor, s1: torch.Tensor,
+                      p2: torch.Tensor, m2: torch.Tensor, tris: torch.Tensor,
+                      eqs: torch.Tensor):
+  """Launch the capsule-mesh kernel (csrc/capsule_hull.cu): the whole of
+  ``engine/collision.py`` ``_capsule_hull`` for one type group, each
+  (env, pair) its own warp.
+
+  Takes the capsules' p1 [..., 3], m1 [..., 3, 3] and sizes s1 [..., 3]
+  (radius, half length; any strides, the expanded static sizes among
+  them), the hulls' p2 [..., 3] and m2 [..., 3, 3] over the same leading
+  dims (a group's [B, G]), and the group's hull, tris [F, 3, 3] and eqs
+  [F, 4] with F >= 1; all float32 or all float64, CUDA tensors on one
+  device, none requiring grad. Raises on anything else. Returns fresh
+  (dist [..., 1], pos [..., 1, 3], n [..., 1, 3]), what
+  ``_one(_capsule_hull)`` returns. Launches on the current stream without
+  synchronising and counts the launch in ``capsule_hull_cuda.launches``.
+  """
+  tensors = (p1, m1, s1, p2, m2, tris, eqs)
+  if not all(t.is_cuda for t in tensors) or len(
+      {t.device for t in tensors}) != 1:
+    raise ValueError("capsule_hull_cuda needs CUDA tensors on one device, "
+                     f"got {sorted({str(t.device) for t in tensors})}")
+  dtype = p1.dtype
+  if dtype not in (torch.float32, torch.float64) or any(
+      t.dtype != dtype for t in tensors):
+    raise TypeError("capsule_hull_cuda takes float32 or float64 alike, got "
+                    f"{[t.dtype for t in tensors]}")
+  lead = tuple(p1.shape[:-1])
+  F = tris.shape[0] if tris.ndim else 0
+  shapes = ((p1, lead + (3,)), (m1, lead + (3, 3)), (s1, lead + (3,)),
+            (p2, lead + (3,)), (m2, lead + (3, 3)), (tris, (F, 3, 3)),
+            (eqs, (F, 4)))
+  if F < 1 or any(tuple(t.shape) != s for t, s in shapes):
+    raise ValueError("capsule_hull_cuda needs p1, s1 and p2 [..., 3], m1 and "
+                     "m2 [..., 3, 3] over the same leading dims, tris "
+                     f"[F, 3, 3] and eqs [F, 4] with F >= 1; got "
+                     f"{[tuple(t.shape) for t in tensors]}")
+  if any(t.requires_grad for t in tensors):
+    raise ValueError("capsule_hull_cuda takes no input that requires grad")
+  if len(lead) != 2:
+    # one pair an env: [N, 1]
+    p1, s1, p2 = (t.reshape(-1, 1, 3) for t in (p1, s1, p2))
+    m1, m2 = (t.reshape(-1, 1, 3, 3) for t in (m1, m2))
+  if s1.stride(2) != 1:
+    s1 = s1.contiguous()
+  p1, m1, p2, m2, tris, eqs = (t.contiguous()
+                               for t in (p1, m1, p2, m2, tris, eqs))
+  B, G = p1.shape[:2]
+  dist = p1.new_empty(lead + (1,))
+  pos = p1.new_empty(lead + (1, 3))
+  n = p1.new_empty(lead + (1, 3))
+  if B and G:
+    lib = _load(CAPSULE_SOURCE)
+    fn = (lib.capsule_hull_f64 if dtype == torch.float64
+          else lib.capsule_hull_f32)
+    with torch.cuda.device(p1.device):
+      stream = torch.cuda.current_stream(p1.device).cuda_stream
+      rc = fn(p1.data_ptr(), m1.data_ptr(), s1.data_ptr(), s1.stride(0),
+              s1.stride(1), p2.data_ptr(), m2.data_ptr(), tris.data_ptr(),
+              eqs.data_ptr(), F, dist.data_ptr(), pos.data_ptr(),
+              n.data_ptr(), B, G, stream)
+    if rc != 0:
+      raise RuntimeError(f"capsule_hull kernel launch failed: cudaError {rc}")
+    capsule_hull_cuda.launches += 1
+  return dist, pos, n
+
+
+capsule_hull_cuda.launches = 0

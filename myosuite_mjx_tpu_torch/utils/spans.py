@@ -45,7 +45,11 @@ their fresh reset [B] (no launch), read by ``reset_use``. And
 ``mesh_contacts_used`` keeps each solve's mask [B, ncon] of the kept
 contacts that are a mesh pair's and hold a nonzero normal force (one
 reduction launch a solve; nothing where the scene has no mesh), read by
-``mesh_contact_use``.
+``mesh_contact_use``. ``capsule_hull_fused`` counts the capsule-mesh
+group calls on the card and those the capsule-hull kernel served
+(``engine/collision.py``) in two ``Count``s, which a CUDA graph carries
+across its replays as it carries a kernel's launch counter
+(``engine/graphs.py`` ``COUNTERS``), since a replay runs no Python.
 """
 from __future__ import annotations
 
@@ -106,6 +110,33 @@ _mesh: list = []
 _stale = True     # no profiler recorded at the last solve
 
 
+class Count:
+  """A count that ``engine/graphs.py``'s ``Graph`` carries across replays,
+  as it carries a kernel's launch counter: ``launches`` is the running
+  total (the capture takes back what its code added, each replay adds it
+  again), and ``kept`` what it gained since the latest recording began."""
+
+  def __init__(self):
+    self.total = 0
+    self.kept = 0
+
+  @property
+  def launches(self) -> int:
+    return self.total
+
+  @launches.setter
+  def launches(self, value: int) -> None:
+    if _keeping():
+      self.kept += value - self.total
+    self.total = value
+
+
+# capsule-mesh group calls on the card: served by the capsule-hull kernel,
+# and all
+capsule_fused = Count()
+capsule_calls = Count()
+
+
 def _keeping() -> bool:
   """Whether a profiler records; the first call of a recording drops what
   an earlier recording kept."""
@@ -121,6 +152,7 @@ def _keeping() -> bool:
     _rows.clear()
     _resets.clear()
     _mesh.clear()
+    capsule_fused.kept = capsule_calls.kept = 0
     _stale = False
   return True
 
@@ -235,3 +267,18 @@ def mesh_contact_use() -> tuple[int, int]:
   solves) over the solves of the latest recording."""
   return (sum(int(k.sum()) for k, _ in _mesh),
           sum(k.shape[0] * slots for k, slots in _mesh))
+
+
+def capsule_hull_fused(fused: bool) -> None:
+  """Count one capsule-mesh group call on the card, served by the
+  capsule-hull kernel or not; what is kept while a profiler records is
+  read by ``capsule_hull_fused_groups``."""
+  capsule_fused.launches += bool(fused)
+  capsule_calls.launches += 1
+
+
+def capsule_hull_fused_groups() -> tuple[int, int]:
+  """(capsule-mesh group calls on the card served by the capsule-hull
+  kernel, all capsule-mesh group calls on the card) over the latest
+  recording, graph replays included."""
+  return capsule_fused.kept, capsule_calls.kept

@@ -626,3 +626,63 @@ def test_deep_penetration_is_bounded_not_nan():
     assert bool(torch.isfinite(x).all())
   assert float(d.abs().max()) < 0.2
   assert float((torch.linalg.vector_norm(nrm, dim=-1) - 1).abs().max()) < 1e-6
+
+
+def _capsule_hull_cases(rng, n):
+  """A unit-ish cube's hull and n capsule-hull poses, float64 on the CPU."""
+  import types
+  verts = np.array([[x, y, z] for x in (-0.02, 0.02) for y in (-0.02, 0.02)
+                    for z in (-0.02, 0.02)])
+  faces = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+           (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)]
+  host = types.SimpleNamespace(mesh_hull_tris=[verts[np.asarray(faces)]],
+                               mesh_hull_verts=[verts])
+  tris, eqs = tc.hull_geometry(host, 0)
+  as_t = torch.as_tensor
+  hull = tc._Hull(tris=as_t(tris), eqs=as_t(eqs), verts=as_t(verts))
+  p2 = rng.uniform(-0.05, 0.05, (n, 3))
+  args = (p2 + rng.uniform(-0.05, 0.05, (n, 3)), _rot(rng, n),
+          np.c_[rng.uniform(0.005, 0.01, n), rng.uniform(0, 0.02, n),
+                np.zeros(n)], p2, _rot(rng, n), np.zeros((n, 3)))
+  return hull, [as_t(a) for a in args]
+
+
+def test_capsule_mesh_route_is_the_plain_path_on_the_cpu_and_under_grad(
+    monkeypatch):
+  """Off the card, or where an input requires grad, a capsule-mesh group
+  runs the plain ``_capsule_hull`` (the kernel's reference); it counts
+  nothing and never reaches the kernel's wrapper. On the card, without
+  grad, the route takes the kernel."""
+  from myosuite_mjx_tpu_torch.ops import cuda_linalg
+  from myosuite_mjx_tpu_torch.utils import spans
+
+  def refuse(*args):
+    raise AssertionError("the capsule-hull kernel was called")
+
+  card = lambda grad: type("T", (), {"is_cuda": True,
+                                     "requires_grad": grad})()
+  assert tc.capsule_hull_on_kernel((card(False), card(False)))
+  assert not tc.capsule_hull_on_kernel((card(False), card(True)))
+  monkeypatch.setattr(cuda_linalg, "capsule_hull_cuda", refuse)
+  hull, args = _capsule_hull_cases(np.random.default_rng(0), 64)
+  assert not tc.capsule_hull_on_kernel(args)
+  fn = tc._mesh_fn(T.CAPSULE, hull)
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CPU]):
+    counted = spans.capsule_hull_fused_groups()
+    dist, pos, n = fn(*args)
+    assert spans.capsule_hull_fused_groups() == counted
+  ref = tc._one(tc._capsule_hull)(args[0], args[1], args[2][..., 0],
+                                   args[2][..., 1], args[3], args[4],
+                                   hull.tris, hull.eqs)
+  for a, b in zip((dist, pos, n), ref):
+    assert torch.equal(a, b)
+  assert (dist < 0).any() and (dist > 0).any()
+  # under grad: the plain path, differentiable
+  p1 = args[0].clone().requires_grad_()
+  assert not tc.capsule_hull_on_kernel((p1,) + tuple(args[1:]))
+  dist_g, _, _ = fn(p1, *args[1:])
+  dist_g.sum().backward()
+  assert torch.equal(dist_g.detach(), dist)
+  assert p1.grad is not None and torch.isfinite(p1.grad).all()
+  assert p1.grad.abs().sum() > 0

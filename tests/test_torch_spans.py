@@ -396,7 +396,8 @@ def hulls_traced():
       steps.append(d)
   return {"phys": phys, "start": start, "steps": steps,
           "mesh": collision.mesh_slots(phys.device_model),
-          "use": spans.mesh_contact_use()}
+          "use": spans.mesh_contact_use(),
+          "capsule": spans.capsule_hull_fused_groups()}
 
 
 def test_mesh_counter_counts_the_mesh_slots_in_force(hulls_traced):
@@ -441,4 +442,71 @@ def test_mesh_reader_reads_its_counter(monkeypatch):
   assert read(ctx) is None
   # a program without the counter (the parent of this counter)
   monkeypatch.delattr(spans, "mesh_contact_use")
+  assert read(ctx) is None
+
+
+def test_capsule_hull_groups_counted_on_the_card_only(hulls_traced):
+  # the hulls scene's capsule-mesh group runs the plain path on the CPU,
+  # uncounted
+  assert hulls_traced["capsule"] == (0, 0)
+  with profile(activities=[ProfilerActivity.CPU]):
+    for fused in (True, False, True, True):
+      spans.capsule_hull_fused(fused)
+    assert spans.capsule_hull_fused_groups() == (3, 4)
+  assert spans.capsule_hull_fused_groups() == (3, 4)
+  # nothing kept without a profiler
+  spans.capsule_hull_fused(True)
+  assert spans.capsule_hull_fused_groups() == (3, 4) and spans._stale
+
+
+def test_a_captured_group_call_counts_at_each_replay_while_recording(
+    monkeypatch):
+  """``graphs.Graph`` takes back the group calls its capture counted (the
+  capture runs nothing) and adds them again at each replay, as it does a
+  kernel's launches; they are kept only while a profiler records. The
+  capture is stood in for on the CPU: ``Graph``'s own code runs."""
+  import contextlib
+  from myosuite_mjx_tpu_torch.engine import graphs
+
+  class Captured:
+    def replay(self):
+      pass
+
+  monkeypatch.setattr(torch.cuda, "CUDAGraph", Captured)
+  monkeypatch.setattr(torch.cuda, "graph",
+                      lambda *a, **k: contextlib.nullcontext())
+
+  def code():
+    spans.capsule_hull_fused(True)
+    spans.capsule_hull_fused(False)
+
+  counts = (spans.capsule_fused, spans.capsule_calls)
+  totals = [c.launches for c in counts]
+  graph = graphs.Graph(code, stream=None)
+  assert [c.launches for c in counts] == totals
+  with profile(activities=[ProfilerActivity.CPU]):
+    graph()
+    graph()
+    assert spans.capsule_hull_fused_groups() == (2, 4)
+    # a capture under a recording counts none
+    graphs.Graph(code, stream=None)
+    assert spans.capsule_hull_fused_groups() == (2, 4)
+  # no profiler: a replay keeps nothing
+  graph()
+  assert spans.capsule_hull_fused_groups() == (2, 4) and spans._stale
+  assert [c.launches for c in counts] == [totals[0] + 3, totals[1] + 6]
+
+
+def test_capsule_hull_reader_reads_the_counter(monkeypatch):
+  read = _reader("capsule_hull_fused_share").read
+  ctx = {"trace": {"idle_by_host_op": {}}}
+  monkeypatch.setattr(spans, "capsule_hull_fused_groups", lambda: (66, 66))
+  assert read(ctx) == pytest.approx(100.0)
+  monkeypatch.setattr(spans, "capsule_hull_fused_groups", lambda: (3, 4))
+  assert read(ctx) == pytest.approx(75.0)
+  assert read({}) is None
+  monkeypatch.setattr(spans, "capsule_hull_fused_groups", lambda: (0, 0))
+  assert read(ctx) is None
+  # a program without the counter (the parent of the capsule-hull kernel)
+  monkeypatch.delattr(spans, "capsule_hull_fused_groups")
   assert read(ctx) is None
